@@ -1,0 +1,191 @@
+"""The port's fused stem (yogo_tpu_torch/ops/stem.py) against the JAX
+package's Pallas stem kernels (interpret mode on the CPU), and the CUDA
+kernel against its plain version where a GPU is present.
+
+JAX is imported inside the tests that compare with it, so the CUDA test
+runs on a GPU machine without JAX:
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_stem.py -k cuda
+Tolerance: 1 bf16 ulp (rtol 8e-3, atol 1e-2) - both sides accumulate in
+f32 in a different order and round once to bf16.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yogo_tpu_torch.ops import stem
+
+RTOL, ATOL = 8e-3, 1e-2
+
+
+def _params(seed: int, c: int = 16, bias: bool = False, bn: bool = True):
+    rng = np.random.default_rng(seed)
+    p = {"kernel": (0.05 * rng.standard_normal((3, 3, 1, c))).astype(np.float32)}
+    p["bias"] = (0.1 * rng.standard_normal(c)).astype(np.float32) if bias else None
+    if bn:
+        p["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        p["bn_bias"] = (0.2 * rng.standard_normal(c)).astype(np.float32)
+        p["mean"] = (5 * rng.standard_normal(c)).astype(np.float32)
+        p["var"] = rng.uniform(10, 200, c).astype(np.float32)
+    return p
+
+
+def _fold_torch(p):
+    def t(a):
+        return None if a is None else torch.from_numpy(a)
+
+    return stem.fold_stem_params(
+        t(p["kernel"].transpose(3, 2, 0, 1)), t(p["bias"]),
+        t(p.get("scale")), t(p.get("bn_bias")), t(p.get("mean")), t(p.get("var")),
+    )
+
+
+@pytest.mark.parametrize("bias,bn", [(False, True), (True, True), (True, False)])
+def test_fold_matches_jax(bias, bn):
+    from yogo_tpu.ops.pallas_stem import fold_stem_params
+
+    p = _params(0, bias=bias, bn=bn)
+    jw, jb = fold_stem_params(
+        p["kernel"], p["bias"], p.get("scale"), p.get("bn_bias"), p.get("mean"), p.get("var")
+    )
+    w, b = _fold_torch(p)
+    assert w.shape == (16, 9) and b.shape == (16,) and w.dtype == torch.float32
+    # JAX (3, 3, C) [dy, dx, c] -> the kernel's (C, 9) [c, 3*dy + dx]
+    want_w = np.asarray(jw).reshape(9, 16).T
+    np.testing.assert_allclose(w.numpy(), want_w, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("shape", [(2, 16, 24), (2, 70, 48)])
+def test_reference_matches_pallas_interpret(shape, layout):
+    import jax.numpy as jnp
+
+    from yogo_tpu.ops.pallas_stem import fused_stem, fused_stem_nchw
+
+    p = _params(1)
+    w, b = _fold_torch(p)
+    imgs = np.random.default_rng(2).integers(0, 256, shape, np.uint8)
+    got = stem.fused_stem_reference(torch.from_numpy(imgs), w, b, layout=layout)
+    assert got.dtype == torch.bfloat16
+    assert got.shape == (shape[0], 16, shape[1] // 2, shape[2] // 2)
+
+    jw = jnp.asarray(w.numpy().T.reshape(3, 3, 16))
+    jb = jnp.asarray(b.numpy())
+    if layout == "nhwc":
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        want = np.asarray(fused_stem(jnp.asarray(imgs), jw, jb, interpret=True), np.float32)
+        got_np = got.permute(0, 2, 3, 1).float().numpy()
+    else:
+        assert got.is_contiguous()
+        want = np.asarray(fused_stem_nchw(jnp.asarray(imgs), jw, jb, interpret=True), np.float32)
+        got_np = got.float().numpy()
+    np.testing.assert_allclose(got_np, want, rtol=RTOL, atol=ATOL)
+
+
+def test_reference_matches_flax_block0():
+    """The folded stem computes block 0 of the flax stack (conv + BN +
+    leaky) up to the bf16 rounding of the output."""
+    import jax.numpy as jnp
+
+    from yogo_tpu.models.defns import base_model
+    from yogo_tpu.models.yogo import ConvStack
+
+    p = _params(3)
+    w, b = _fold_torch(p)
+    imgs = np.random.default_rng(4).integers(0, 256, (2, 32, 48), np.uint8)
+    sub = ConvStack(blocks=base_model(2).blocks[:1])
+    v = {
+        "params": {"conv0": {"kernel": p["kernel"]},
+                   "bn0": {"scale": p["scale"], "bias": p["bn_bias"]}},
+        "batch_stats": {"bn0": {"mean": p["mean"], "var": p["var"]}},
+    }
+    want = np.asarray(sub.apply(v, jnp.asarray(imgs[..., None], jnp.float32), train=False))
+    got = stem.fused_stem_reference(torch.from_numpy(imgs), w, b, layout="nhwc")
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).float().numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_cpu_wrapper_takes_plain_version_without_launching():
+    w, b = _fold_torch(_params(5))
+    imgs = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (1, 8, 10), np.uint8))
+    before = dict(stem.LAUNCHES)
+    for layout in stem.LAYOUTS:
+        got = stem.fused_stem_nchw(imgs, w, b, layout=layout)
+        assert torch.equal(got, stem.fused_stem_reference(imgs, w, b, layout=layout))
+    assert dict(stem.LAUNCHES) == before
+
+
+@pytest.mark.parametrize(
+    "imgs,wshape,layout,match",
+    [
+        (np.zeros((1, 7, 8), np.uint8), (16, 9), "nchw", "even"),
+        (np.zeros((1, 8, 8), np.float32), (16, 9), "nchw", "uint8"),
+        (np.zeros((8, 8), np.uint8), (16, 9), "nchw", "uint8"),
+        (np.zeros((1, 8, 8), np.uint8), (16, 3, 3), "nchw", r"\(C, 9\)"),
+        (np.zeros((1, 8, 8), np.uint8), (16, 9), "hwcn", "layout"),
+    ],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(imgs, wshape, layout, match):
+    w = torch.zeros(wshape)
+    with pytest.raises(ValueError, match=match):
+        stem.fused_stem_nchw(torch.from_numpy(imgs), w, torch.zeros(16), layout=layout)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA GPU")
+@pytest.mark.parametrize("c", stem.STEM_CHANNELS)
+def test_cuda_kernel_matches_plain_version(c):
+    w, b = (t.cuda() for t in _fold_torch(_params(7, c=c)))
+    rng = np.random.default_rng(8)
+    for shape in [(2, 772, 1032), (3, 70, 48), (1, 2, 2), (2, 18, 130)]:
+        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).cuda()
+        for layout in stem.LAYOUTS:
+            n = stem.LAUNCHES[f"stem_{layout}"]
+            got = stem.fused_stem_nchw(x, w, b, layout=layout)
+            torch.cuda.synchronize()
+            assert stem.LAUNCHES[f"stem_{layout}"] == n + 1
+            want = stem.fused_stem_reference(x, w, b, layout=layout)
+            fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+            assert got.shape == want.shape and got.is_contiguous(memory_format=fmt)
+            torch.testing.assert_close(got.float(), want.float(), rtol=RTOL, atol=ATOL)
+
+
+def _fake_nvcc(tmp_path, body: str):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    return str(nvcc)
+
+
+def test_build_runs_nvcc_for_sm90a_into_a_hashed_library(tmp_path, monkeypatch):
+    """The build plumbing, with a stand-in for nvcc (there is none here)."""
+    from yogo_tpu_torch import kernels
+
+    args = tmp_path / "args"
+    nvcc = _fake_nvcc(tmp_path, (
+        f'echo "$@" > {args}\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && touch "$2"; shift; done\n'
+        'echo "ptxas info: 50 registers"\n'
+    ))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "find_nvcc", lambda: nvcc)
+    kernels.build_all()
+    lib = kernels._lib_path("stem")
+    assert lib.exists() and lib.parent == tmp_path / "build"
+    assert "arch=compute_90a,code=sm_90a" in args.read_text()
+    assert args.read_text().rstrip().endswith("csrc/stem.cu")
+    assert "50 registers" in kernels.build_logs["stem"]
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [lib.name]
+    args.unlink()
+    kernels.build_all()  # already built: nvcc is not run again
+    assert not args.exists()
+
+
+def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
+    from yogo_tpu_torch import kernels
+
+    nvcc = _fake_nvcc(tmp_path, 'echo "stem.cu(1): error: boom"\nexit 2\n')
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "find_nvcc", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="error: boom"):
+        kernels.build_all(["stem"])
+    assert list((tmp_path / "build").iterdir()) == []
