@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero):
   1. device: the card's name and `nvidia-smi` name / power limit;
-  2. build: every CUDA source of the port, one nvcc each, in parallel;
+  2. build: every CUDA source of the port, one nvcc each, in parallel, with
+     ptxas's registers / spills and a SASS summary per kernel (cuobjdump);
   3. kernels against their plain PyTorch versions on the card: the stem
      kernel in both layouts on block-0 weights of the trained base_model
      checkpoint at 772x1032 (B=2 and the B=64 timing batch) and at an odd
@@ -15,9 +16,10 @@ Phases (any failure exits non-zero):
      bf16 in both block layouts (the stem launch counters must move) within
      +-2 detections per image of tests/goldens/detections_fullres_base.npz,
      and float32 with TF32 off within +-1;
-  5. timing at B=64, 772x1032: kernel, plain version, a cuDNN yardstick and
-     the bytes bound per layout; blocks 1-7 in NCHW and channels_last; the
-     stages of the count path; images/s of the bf16 count path;
+  5. timing at B=64, 772x1032 (CUDA events around 20 back-to-back calls):
+     kernel, plain version, a cuDNN yardstick and the bytes bound per
+     layout; blocks 1-7 in NCHW and channels_last; the stages of the count
+     path; images/s of the bf16 count path (host clock);
   6. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
@@ -80,8 +82,12 @@ def mem_rate(name: str) -> float:
     raise RuntimeError(f"no memory rate known for {name!r}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event timings of fn(), in ms."""
+def cuda_ms(fn, reps: int, per_rep: int = 20, warmup: int = 3) -> float:
+    """Time of one fn() call in ms: the median over `reps` of CUDA-event
+    timings of `per_rep` back-to-back calls, divided by `per_rep`. The
+    calls queue up behind one another, so the host work of each call
+    overlaps the device work of the one before, and only the device time
+    stays in the window."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -89,10 +95,11 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per_rep):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per_rep)
     return statistics.median(times)
 
 
@@ -124,6 +131,17 @@ def main() -> int:
     log(f"build: {report['build_s']:.1f} s for {sorted(kernels.SOURCES)}")
     for name, text in kernels.build_logs.items():
         log(f"--- nvcc csrc/{name}.cu ---\n{text.strip()}")
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    report["sass"] = {}
+    for name in kernels.SOURCES:
+        try:
+            report["sass"][name] = kernels.sass_summary(name, out_dir / f"sass_{name}.txt")
+        except (OSError, subprocess.CalledProcessError) as e:  # no cuobjdump: a note, not a failure
+            log(f"sass of csrc/{name}.cu: not read ({e})")
+            continue
+        for fn, s in report["sass"][name].items():
+            log(f"sass {fn}: {json.dumps(s)}")
 
     # ------------------------------------- 3. kernels vs their plain versions
     golden = np.load(GOLDEN)
@@ -297,11 +315,10 @@ def main() -> int:
             "plain_ms": timing[layout]["plain_ms"],
             "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"],
+            "bound_share": timing["bound_ms"] / timing[layout]["ms"],
             "library_ms": timing[layout]["library_ms"],
         })
     report["kernels"] = rows
-    out_dir = REPO / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,7 @@ kernel against its plain version where a GPU is present.
 
 JAX is imported inside the tests that compare with it, so the CUDA test
 runs on a GPU machine without JAX:
-    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_stem.py -k cuda
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_stem.py -m cuda
 Tolerance: 1 bf16 ulp (rtol 8e-3, atol 1e-2) - both sides accumulate in
 f32 in a different order and round once to bf16.
 """
@@ -131,22 +131,43 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(imgs, wshape, layout, mat
         stem.fused_stem_nchw(torch.from_numpy(imgs), w, torch.zeros(16), layout=layout)
 
 
-@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA GPU")
+@pytest.fixture
+def cuda():
+    """Skips the test where there is no CUDA GPU (decided when the test
+    runs, not when the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+
+
+# (B, H, W): W/2 odd and even, not a multiple of the 2 pixels a thread
+# computes nor of the 8 that one 16-byte NCHW store holds; NCHW planes whose
+# warp runs are not 16-byte aligned (10x12); H/2 not a multiple of the 8-row
+# band; B=1; and B=1000 small images, more bands than the persistent grid
+# has blocks
+CUDA_SHAPES = [(2, 772, 1032), (1, 772, 1030), (3, 70, 48), (1, 2, 2), (2, 6, 6),
+               (2, 10, 12), (2, 18, 130), (1000, 4, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", stem.LAYOUTS)
 @pytest.mark.parametrize("c", stem.STEM_CHANNELS)
-def test_cuda_kernel_matches_plain_version(c):
+def test_cuda_kernel_matches_plain_version(cuda, c, layout):
     w, b = (t.cuda() for t in _fold_torch(_params(7, c=c)))
     rng = np.random.default_rng(8)
-    for shape in [(2, 772, 1032), (3, 70, 48), (1, 2, 2), (2, 18, 130)]:
-        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).cuda()
-        for layout in stem.LAYOUTS:
-            n = stem.LAUNCHES[f"stem_{layout}"]
-            got = stem.fused_stem_nchw(x, w, b, layout=layout)
-            torch.cuda.synchronize()
-            assert stem.LAUNCHES[f"stem_{layout}"] == n + 1
-            want = stem.fused_stem_reference(x, w, b, layout=layout)
-            fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
-            assert got.shape == want.shape and got.is_contiguous(memory_format=fmt)
-            torch.testing.assert_close(got.float(), want.float(), rtol=RTOL, atol=ATOL)
+    cases = [torch.from_numpy(rng.integers(0, 256, s, np.uint8)).cuda() for s in CUDA_SHAPES]
+    # a base that is not 16-byte aligned: 772 * 1030 = 8 (mod 16)
+    misaligned = torch.from_numpy(rng.integers(0, 256, (3, 772, 1030), np.uint8)).cuda()[1:]
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16 == 8
+    fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+    for x in cases + [misaligned]:
+        n = stem.LAUNCHES[f"stem_{layout}"]
+        got = stem.fused_stem_nchw(x, w, b, layout=layout)
+        torch.cuda.synchronize()
+        assert stem.LAUNCHES[f"stem_{layout}"] == n + 1
+        want = stem.fused_stem_reference(x, w, b, layout=layout)
+        assert got.shape == want.shape and got.is_contiguous(memory_format=fmt)
+        torch.testing.assert_close(got.float(), want.float(), rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: f"{tuple(x.shape)}: {m}")
 
 
 def _fake_nvcc(tmp_path, body: str):
@@ -189,3 +210,59 @@ def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="error: boom"):
         kernels.build_all(["stem"])
     assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A change to a csrc/ header that a .cu includes names a new library,
+    so a stale build is never loaded; a file it does not include does not."""
+    from yogo_tpu_torch import kernels
+
+    (tmp_path / "stem.cu").write_text('#include <cuda_runtime.h>\n#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    monkeypatch.setattr(kernels, "CSRC_DIR", tmp_path)
+    first = kernels._lib_path("stem")
+    assert [p.name for p in kernels._sources("stem")] == ["common.cuh", "inner.cuh", "stem.cu"]
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert kernels._lib_path("stem") == first
+    (tmp_path / "inner.cuh").write_text("// v2\n")
+    second = kernels._lib_path("stem")
+    assert second != first and second.name.startswith("libstem-")
+    (tmp_path / "common.cuh").write_text('#pragma once\n#include "inner.cuh"\n// edited\n')
+    assert kernels._lib_path("stem") not in (first, second)
+
+
+def test_sass_summary_counts_the_longest_loop():
+    from yogo_tpu_torch.kernels import parse_sass
+
+    listing = """
+        Function : void k<16, true>(int)
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+        /*0010*/                   LDS.U8 R0, [R2] ;
+        /*0020*/                   FFMA R3, R0, R4, R3 ;
+        /*0030*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+        /*0040*/               @P0 BRA 0x10 ;                           /* 0xfffffffc006c8947 */
+        /*0050*/              @!P0 BRA 0x70 ;
+        /*0060*/                   EXIT ;
+        /*0070*/                   BRA 0x70;
+        /*0080*/                   NOP;
+"""
+    got = parse_sass(listing)
+    assert got == {"void k<16, true>(int)": {
+        "instructions": 8, "ffma": 1,
+        "loop": {"instructions": 4, "ffma": 1, "lds": 1, "stg": 1}}}
+
+
+def test_stem_variants_edit_the_current_source():
+    """Every text edit of the variant-timing script still finds its anchor
+    exactly once in csrc/stem.cu, and the kernel variant is the source."""
+    from yogo_tpu_torch import kernels
+    from yogo_tpu_torch.tools import stem_variants
+
+    src = (kernels.CSRC_DIR / "stem.cu").read_text()
+    assert stem_variants.variant_source(src, stem_variants.VARIANTS["kernel"][0]) == src
+    for name, (edits, _, _) in stem_variants.VARIANTS.items():
+        assert stem_variants.variant_source(src, edits) != src or name == "kernel"
+    with pytest.raises(ValueError, match="anchor"):
+        stem_variants.variant_source(src, [("no such line in the kernel", "")])

@@ -3,8 +3,9 @@
 Each `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into its
 own shared library with a plain C interface, and loaded with `ctypes` - no
 PyTorch headers, so a build takes seconds. Libraries go to
-`yogo_tpu_torch/_build/` (git-ignored), named by a hash of the source and
-flags, so a stale build is never loaded. Nothing is built at import: the
+`yogo_tpu_torch/_build/` (git-ignored), named by a hash of the sources (the
+`.cu` and every `csrc/` header it includes) and the flags, so a stale build
+is never loaded. Nothing is built at import: the
 first call that needs a kernel builds it, and `build_all()` builds every
 source at once, one `nvcc` process each, all started together.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,8 +61,28 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """csrc/<name>.cu and every file of csrc/ it includes with #include
+    "...", directly or through another such file, in a fixed order."""
+    todo, seen = [CSRC_DIR / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return sorted(seen)
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    """The library of csrc/<name>.cu, named by a hash of its sources (the
+    .cu and the headers it includes) and the compiler flags."""
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -110,6 +132,65 @@ def load(name: str) -> ctypes.CDLL:
                 f.argtypes = argtypes
             _loaded[name] = lib
         return _loaded[name]
+
+
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([^;]*);")
+_SASS_BRANCH = re.compile(r"^\S*\s+(0x[0-9a-f]+)")
+
+
+def parse_sass(text: str) -> Dict[str, dict]:
+    """Per kernel function of a `cuobjdump -sass` listing: its instruction
+    count (NOPs left out) and, for its longest loop (a backward branch and
+    the code it jumps back over), the loop body's instruction count and its
+    FFMA, shared-load (LDS) and global-store (STG) counts."""
+    out: Dict[str, dict] = {}
+    ops: list = []  # (address, opcode, branch target or None)
+    name = None
+
+    def close():
+        if name is None:
+            return
+        loop: list = []
+        for i, (addr, _, target) in enumerate(ops):
+            if target is not None and target < addr:
+                body = [o for a, o, _ in ops[: i + 1] if a >= target]
+                if len(body) > len(loop):
+                    loop = body
+        out[name] = {
+            "instructions": len(ops),
+            "ffma": sum(o == "FFMA" for _, o, _ in ops),
+            "loop": {"instructions": len(loop), "ffma": loop.count("FFMA"),
+                     "lds": loop.count("LDS"), "stg": loop.count("STG")},
+        }
+
+    for line in text.splitlines():
+        if "Function :" in line:
+            close()
+            name, ops = line.split("Function :", 1)[1].strip(), []
+            continue
+        m = _SASS_INSTR.search(line)
+        if m and m.group(2) != "NOP":
+            b = _SASS_BRANCH.match(m.group(3)) if m.group(2) == "BRA" else None
+            ops.append((int(m.group(1), 16), m.group(2), int(b.group(1), 16) if b else None))
+    close()
+    return out
+
+
+def sass_summary(name: str, dump: Optional[Path] = None) -> Dict[str, dict]:
+    """parse_sass of the built library of csrc/<name>.cu, with demangled
+    function names where the toolkit has cu++filt; the listing is written to
+    `dump` if given."""
+    bindir = Path(find_nvcc()).parent
+    text = subprocess.run(
+        [str(bindir / "cuobjdump"), "-sass", str(_lib_path(name))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    filt = bindir / "cu++filt"
+    if filt.exists():
+        text = subprocess.run([str(filt)], input=text, capture_output=True, text=True).stdout or text
+    if dump is not None:
+        dump.write_text(text)
+    return parse_sass(text)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
