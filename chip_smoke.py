@@ -20,17 +20,28 @@ Phases (any failure exits non-zero):
      kernel, plain version, a cuDNN yardstick and the bytes bound per
      layout; blocks 1-7 in NCHW and channels_last; the stages of the count
      path; images/s of the bf16 count path (host clock);
-  6. one JSON line per kernel ("kernels"), then the last line
+  6. training (train_phase): one float32 step from the trained checkpoint
+     on the card against the same step on the CPU (loss, components, every
+     gradient); 30 bf16 steps at B=64 from a fresh init with dropout and
+     flips on (finite, falling loss; BN statistics move; scheduler ==
+     closed form); 3 steps each with BN frozen and with accumulate=2 +
+     remat="blocks" at B=16; the trained state saved, reloaded through
+     Predictor and counted on the golden frames through the stem kernel
+     (head equal to the in-memory stack's); step time, its forward /
+     backward / optimizer split, images/s and peak memory;
+  7. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,25 +65,29 @@ def log(*a):
     print(*a, flush=True)
 
 
-def gen_golden_images(n: int = 4, seed: int = 3) -> np.ndarray:
-    """(n, 1, 772, 1032) uint8: the frozen generator of
-    tests/test_golden_fullres.py (gen_test_images), without the PNG
-    round trip (which is lossless)."""
-    h, w = HW
+def gen_golden_images(n: int = 4, seed: int = 3, hw=HW):
+    """((n, 1, 772, 1032) uint8, n label arrays (N_i, 5) [class, x1, y1,
+    x2, y2] in image fractions): the frozen generator of
+    tests/test_golden_fullres.py (gen_test_images), without the PNG round
+    trip (which is lossless), and with every blob's class and rectangle."""
+    h, w = hw
     blobs = {0: (36, 36), 1: (24, 48)}
     r = np.random.default_rng(seed)
-    out = []
+    out, labels = [], []
     for _ in range(n):
         arr = np.full((h, w), 225, np.uint8)
+        rows = []
         for _ in range(int(r.integers(20, 61))):
             cls = int(r.integers(0, 2))
             bh, bw = blobs[cls]
             y = int(r.integers(2, h - 2 - bh))
             x = int(r.integers(2, w - 2 - bw))
             arr[y : y + bh, x : x + bw] = 60 if cls == 0 else 130
+            rows.append([cls, x / w, y / h, (x + bw) / w, (y + bh) / h])
         arr += r.integers(0, 12, arr.shape).astype(np.uint8)
         out.append(arr)
-    return np.stack(out)[:, None]
+        labels.append(np.asarray(rows, np.float32))
+    return np.stack(out)[:, None], labels
 
 
 def mem_rate(name: str) -> float:
@@ -101,6 +116,261 @@ def cuda_ms(fn, reps: int, per_rep: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / per_rep)
     return statistics.median(times)
+
+
+def train_phase(dev, imgs4, boxes4, smi, *, batch=TIMING_BATCH, steps=30, small_batch=16,
+                ckpt=CKPT, model_version="base_model"):
+    """Phase 6: the training step on `dev`. Returns (numbers for the
+    report, stem launches of the reload-and-count step). Every check
+    raises."""
+    from yogo_tpu_torch.infer import Predictor
+    from yogo_tpu_torch.losses import yogo_loss
+    from yogo_tpu_torch.models.yogo import YOGO, no_tf32
+    from yogo_tpu_torch.ops.grid import encode_label_grid_np
+    from yogo_tpu_torch.ops.stem import LAUNCHES
+    from yogo_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from yogo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
+    from yogo_tpu_torch.utils.weights import (
+        flax_from_state_dict, optax_state_from_torch, state_dict_from_flax,
+    )
+
+    out = {}
+    on_card = dev.type == "cuda"
+    loss_kw = dict(no_obj_weight=df.NO_OBJ_WEIGHT, iou_weight=df.IOU_WEIGHT,
+                   classify_weight=df.CLASSIFY_WEIGHT, label_smoothing=df.LABEL_SMOOTHING)
+
+    # ---- data from a seed: the golden frames and their label grids, tiled
+    gold_model, gold_vars, _ = load_checkpoint(ckpt)
+    sx, sy = gold_model.grid
+    grids4 = np.stack([encode_label_grid_np(b, sx, sy) for b in boxes4])
+    n4 = len(imgs4)
+    out["labels_per_image"] = [int(g[0].sum()) for g in grids4]
+
+    def tiled(n):
+        reps = -(-n // n4)
+        return (torch.from_numpy(np.concatenate([imgs4] * reps)[:n]).to(dev),
+                torch.from_numpy(np.concatenate([grids4] * reps)[:n]).to(dev),
+                torch.ones(n, device=dev))
+
+    # ---- one float32 step from the trained checkpoint: card against CPU.
+    # Dropout masks come from a CPU generator with one seed on every side,
+    # so they are the same masks; flips are off. A float64 run of the stack
+    # on the CPU (decode and loss stay float32) says how far float32 itself
+    # is from the truth: near its optimum the trained model's gradients are
+    # small residues of large cancelling sums.
+    def one_step(device, dtype=torch.float32):
+        m = dataclasses.replace(gold_model, compute_dtype=dtype)
+        stack = m.module(device)
+        stack.load_state_dict(state_dict_from_flax(gold_vars), strict=True)
+        stack.to(dtype)
+        x = torch.from_numpy(imgs4[:2]).to(device)
+        lab = torch.from_numpy(grids4[:2]).to(device)
+        with no_tf32(torch.device(device)):
+            pred = m.apply(stack, x, train=True, generator=torch.Generator().manual_seed(11))
+            loss, comps = yogo_loss(pred, lab, **loss_kw)
+            loss.backward()
+        grads = {k: p.grad.detach().cpu().double() for k, p in stack.named_parameters()}
+        stats = {k: b.detach().cpu().double() for k, b in stack.named_buffers() if "running" in k}
+        return float(loss.detach()), {k: float(v.detach()) for k, v in comps.items()}, grads, stats
+
+    t0 = time.time()
+    loss_c, comps_c, grads_c, stats_c = one_step(dev)
+    loss_h, comps_h, grads_h, stats_h = one_step("cpu")
+    loss_d, _, grads_d, _ = one_step("cpu", torch.float64)
+    check = {"loss_card": loss_c, "loss_cpu": loss_h, "loss_cpu_float64_stack": loss_d,
+             "components_card": comps_c, "components_cpu": comps_h, "seconds": time.time() - t0}
+    # tolerances: loss and components rtol 1e-4 against the CPU's; BN
+    # running statistics rtol 1e-4; each gradient, measured against the
+    # float64 stack's and relative to its max-norm, within 1e-3 or 4 times
+    # the error of the CPU's own float32 gradient, whichever is larger
+    if not np.isclose(loss_c, loss_h, rtol=1e-4):
+        raise AssertionError(f"one-step loss: card {loss_c} vs CPU {loss_h}")
+    for k in comps_h:
+        if not np.isclose(comps_c[k], comps_h[k], rtol=1e-4, atol=1e-7):
+            raise AssertionError(f"one-step {k}: card {comps_c[k]} vs CPU {comps_h[k]}")
+    # a bias in front of a BN (block 5) has an exactly zero gradient: its
+    # error is measured against the model's largest gradient instead
+    floor = 1e-3 * max(float(g.abs().max()) for g in grads_d.values())
+    per_param = {}
+    for k, g in grads_d.items():
+        norm = g.abs().max().clamp(min=floor)
+        err_card = float((grads_c[k] - g).abs().max() / norm)
+        err_cpu = float((grads_h[k] - g).abs().max() / norm)
+        per_param[k] = {"card": err_card, "cpu_float32": err_cpu, "max_norm": float(norm)}
+        if not torch.isfinite(grads_c[k]).all() or err_card > max(1e-3, 4 * err_cpu):
+            raise AssertionError(
+                f"one-step gradient {k}: max-norm error {err_card:.3g} on the card, "
+                f"{err_cpu:.3g} on the CPU in float32"
+            )
+    for k, b in stats_h.items():
+        torch.testing.assert_close(stats_c[k], b, rtol=1e-4, atol=1e-6, msg=lambda m, k=k: f"{k}: {m}")
+    worst = max(v["card"] for v in per_param.values())
+    worst_cpu = max(v["cpu_float32"] for v in per_param.values())
+    check["gradient_max_norm_error_vs_float64"] = per_param
+    check["worst_gradient_error_card"] = worst
+    check["worst_gradient_error_cpu_float32"] = worst_cpu
+    out["one_step_card_vs_cpu"] = check
+    log(f"train one step f32 B=2, card vs CPU: loss {loss_c:.6f} / {loss_h:.6f} "
+        f"(float64 stack {loss_d:.6f}); worst gradient max-norm error against the float64 "
+        f"stack: card {worst:.3g}, CPU float32 {worst_cpu:.3g}, over {len(per_param)} tensors")
+    del grads_c, grads_h, grads_d
+
+    # ---- a few steps at full width: fresh init, bf16, dropout and flips on
+    model = YOGO.create(gold_model.img_size, gold_model.anchor_w, gold_model.anchor_h,
+                        gold_model.num_classes, model_version=model_version,
+                        compute_dtype=torch.bfloat16)
+
+    def new_state(seed, total_steps):
+        stack = model.init(torch.Generator().manual_seed(seed), device=dev)
+        optimizer, scheduler, host = make_optimizer(
+            stack.parameters(), df.LEARNING_RATE, df.WEIGHT_DECAY, df.DECAY_FACTOR, total_steps)
+        return TrainState(stack, optimizer, scheduler), host
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state, host_schedule = new_state(0, total_steps=100)
+    stack = state.stack
+    bn_means0 = {k: b.clone() for k, b in stack.named_buffers() if k.endswith("running_mean")}
+    x, lab, mask = tiled(batch)
+    step = make_train_step(model, loss_kw)
+    gen = torch.Generator().manual_seed(1)
+    losses, lrs = [], []
+    t0 = time.time()
+    for i in range(steps):
+        lr = state.optimizer.param_groups[0]["lr"]
+        if not np.isclose(lr, host_schedule(i), rtol=1e-12):
+            raise AssertionError(f"step {i}: scheduler lr {lr} vs closed form {host_schedule(i)}")
+        lrs.append(lr)
+        _, loss, comps = step(state, x, lab, mask, gen)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().tolist()  # waits for the device
+    train_s = time.time() - t0
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 5 mean {first}, last 5 mean {last}")
+    for k, b0 in bn_means0.items():
+        if torch.equal(stack.get_buffer(k), b0):
+            raise AssertionError(f"{k} did not move in {steps} training steps")
+    if state.step != steps or state.scheduler.last_epoch != steps:
+        raise AssertionError(f"step counts {state.step}, {state.scheduler.last_epoch} != {steps}")
+    out["train"] = {
+        "batch": batch, "steps": steps, "losses": losses, "first5_mean": first,
+        "last5_mean": last, "lr_first": lrs[0], "lr_last": lrs[-1],
+        "wall_s_incl_warmup": train_s,
+        "last_components": {k: float(v) for k, v in comps.items()},
+    }
+    if on_card:
+        out["train"]["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train {steps} steps bf16 B={batch}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(first 5 mean {first:.4f}, last 5 mean {last:.4f}), lr {lrs[0]:.3g} -> {lrs[-1]:.3g}")
+
+    # ---- B=16: BN frozen, then accumulate=2 with remat="blocks"
+    xs, labs, masks = tiled(small_batch)
+    tuned, _ = new_state(2, total_steps=100)
+    tuned.stack.load_state_dict(stack.state_dict())
+    stats0 = {k: b.clone() for k, b in tuned.stack.named_buffers()}
+    tune_step = make_train_step(model, loss_kw, tuning=True)
+    tune_losses = [float(tune_step(tuned, xs, labs, masks, gen)[1]) for _ in range(3)]
+    for k, b in tuned.stack.named_buffers():
+        if not torch.equal(b, stats0[k]):
+            raise AssertionError(f"tuning=True changed {k}")
+    if not all(np.isfinite(tune_losses)) or torch.equal(tuned.stack.conv3.weight, stack.conv3.weight):
+        raise AssertionError(f"tuning steps did not train: {tune_losses}")
+    acc, _ = new_state(3, total_steps=100)
+    acc_step = make_train_step(model, loss_kw, accumulate=2, remat="blocks")
+    half = small_batch // 2
+    stacked = [t.reshape(2, half, *t.shape[1:]) for t in (xs, labs, masks)]
+    acc_losses = [float(acc_step(acc, *stacked, gen)[1]) for _ in range(3)]
+    if not all(np.isfinite(acc_losses)) or acc.step != 3 or acc.scheduler.last_epoch != 3:
+        raise AssertionError(f"accumulate=2 remat=blocks: {acc_losses}, step {acc.step}")
+    if torch.equal(acc.stack.bn0.running_mean, torch.zeros_like(acc.stack.bn0.running_mean)):
+        raise AssertionError("accumulate=2: BN statistics did not move")
+    out["tuning_b16_losses"] = tune_losses
+    out["accumulate2_remat_blocks_b16_losses"] = acc_losses
+    log(f"train B={small_batch}: tuning losses {tune_losses} (BN statistics bit-equal); "
+        f"accumulate=2 remat=blocks losses {acc_losses}")
+    del tuned, acc
+
+    # ---- round trip through the checkpoint and the stem kernel
+    LAUNCHES.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trained.ckpt"
+        save_checkpoint(
+            path, model, flax_from_state_dict(stack.state_dict()),
+            opt_state=optax_state_from_torch(stack, state.optimizer, state.scheduler),
+            epoch=0, step=state.step, classes=["cell", "parasite"], model_name="chip_smoke",
+        )
+        out["checkpoint_bytes"] = path.stat().st_size
+        round_trip = {}
+        for layout in ("nhwc", "nchw"):
+            pred = Predictor.from_checkpoint(path, half=True, device=dev,
+                                             channels_last=layout == "nhwc")
+            raw = pred.forward_raw(imgs4)
+            counts = pred.count(raw, torch.ones(n4, dtype=torch.bool)).cpu().tolist()
+            if pred.meta["step"] != steps or "_opt_state_bytes" not in pred.meta:
+                raise AssertionError(f"reloaded meta: {sorted(pred.meta)}")
+            if raw.shape != (n4, sy, sx, 5 + model.num_classes) or not torch.isfinite(raw.float()).all():
+                raise AssertionError(f"reloaded {layout}: bad head {raw.shape}")
+            if layout == "nhwc":  # the in-memory stack runs channels_last
+                want = model.apply(stack, torch.from_numpy(imgs4).to(dev), decode=False)
+                if not torch.equal(raw, want):
+                    err = float((raw.float() - want.float()).abs().max())
+                    raise AssertionError(f"reloaded head differs from the trained stack's by {err}")
+            round_trip[layout] = {"counts": counts}
+    launches = dict(LAUNCHES)
+    out["round_trip"] = round_trip
+    out["round_trip_stem_launches"] = launches
+    log(f"train round trip: checkpoint {out['checkpoint_bytes']} B, reloaded head == in-memory head, "
+        f"counts {round_trip}, stem launches {launches}")
+    if not on_card:
+        return out, launches
+
+    # ---- numbers: step time, its split, images/s, peak memory
+    def events(n):
+        return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+    timing = {}
+    for remat in ("none", "blocks"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timed = make_train_step(model, loss_kw, remat=remat)
+        for _ in range(2):
+            timed(state, x, lab, mask, gen)
+        reps = []
+        for _ in range(5):
+            a, b = events(2)
+            a.record()
+            for _ in range(10):
+                timed(state, x, lab, mask, gen)
+            b.record()
+            b.synchronize()
+            reps.append(a.elapsed_time(b) / 10)
+        ms = statistics.median(reps)
+        timing[remat] = {"step_ms": ms, "step_ms_reps": reps, "img_per_s": batch / ms * 1e3,
+                         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    split = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    for _ in range(7):
+        state.optimizer.zero_grad(set_to_none=True)
+        e = events(4)
+        e[0].record()
+        pred = model.apply(stack, x.to(torch.bfloat16), train=True, generator=gen)
+        loss, _ = yogo_loss(pred, lab, image_mask=mask, **loss_kw)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        state.optimizer.step()
+        state.scheduler.step()
+        e[3].record()
+        e[3].synchronize()
+        for key, (p, q) in zip(split, zip(e, e[1:])):
+            split[key].append(p.elapsed_time(q))
+    timing["split_no_flips"] = {k: statistics.median(v[2:]) for k, v in split.items()}
+    out["timing"] = timing
+    log("train timing (bf16, B=%d, %dx%d, %s): %s" % (batch, *model.img_size, smi, json.dumps(timing)))
+    return out, launches
 
 
 def main() -> int:
@@ -150,7 +420,7 @@ def main() -> int:
     want_classes = np.zeros(2, np.int64)
     for i in range(n_img):
         np.add.at(want_classes, golden[f"dets_{i}"][:, 5:].argmax(axis=1), 1)
-    imgs4 = gen_golden_images(n_img)
+    imgs4, boxes4 = gen_golden_images(n_img)
     big = np.concatenate([imgs4] * (TIMING_BATCH // n_img))
 
     ref_pred = Predictor.from_checkpoint(CKPT, half=True, device=dev)
@@ -301,7 +571,15 @@ def main() -> int:
     report["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log("timing (B=64, 772x1032, " + smi + "): " + json.dumps(timing))
 
-    # ------------------------------------------------------------ 6. report
+    # ---------------------------------------------------------- 6. training
+    del preds, x64, pred, stack, raw, h0
+    torch.cuda.empty_cache()
+    report["training"], train_launches = train_phase(dev, imgs4, boxes4, smi)
+    for layout in ("nhwc", "nchw"):
+        if train_launches.get(f"stem_{layout}", 0) < 1:
+            raise AssertionError(f"stem_{layout} was not launched with the trained weights")
+
+    # ------------------------------------------------------------ 7. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -310,6 +588,7 @@ def main() -> int:
             "source": "yogo_tpu_torch/csrc/stem.cu",
             "replaces": f"yogo_tpu/ops/pallas_stem.py:{line}",
             "launches": launches[f"stem_{layout}"],
+            "launches_train_round_trip": train_launches[f"stem_{layout}"],
             "max_abs_err": max_err[layout],
             "ms": timing[layout]["ms"],
             "plain_ms": timing[layout]["plain_ms"],

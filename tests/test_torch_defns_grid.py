@@ -62,8 +62,8 @@ def test_temporary_model_scoped():
 
 
 def test_port_imports_no_jax():
-    """Every module of yogo_tpu_torch imports without pulling in jax, flax
-    or yogo_tpu."""
+    """Every module of yogo_tpu_torch imports without pulling in jax, flax,
+    optax, msgpack or yogo_tpu."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "yogo_tpu_torch").rglob("*.py")
@@ -73,7 +73,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yogo_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'yogo_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -93,7 +93,7 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
     assert "yogo_tpu_torch" in roots and "torch" in roots
-    assert not roots & {"jax", "flax", "yogo_tpu"}, roots
+    assert not roots & {"jax", "flax", "optax", "msgpack", "yogo_tpu"}, roots
 
 
 def test_entry_points_require_cuda_by_default(tmp_path):

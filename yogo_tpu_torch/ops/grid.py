@@ -1,5 +1,5 @@
 """Grid-size arithmetic and cell-offset grids (copy of
-yogo_tpu/ops/grid.py:19-75).
+yogo_tpu/ops/grid.py:19-96).
 
 Folds conv shape arithmetic over the declarative layer specs (reference:
 yogo/model.py:189-234) and builds the YOLO9000 "direct location prediction"
@@ -71,3 +71,25 @@ def cell_offsets(Sx: int, Sy: int) -> Tuple[np.ndarray, np.ndarray]:
         np.linspace(0.0, 1.0 - 1.0 / Sy, Sy, dtype=np.float32)[:, None], (Sy, Sx)
     )
     return np.ascontiguousarray(cxs), np.ascontiguousarray(cys)
+
+
+def encode_label_grid_np(labels: np.ndarray, Sx: int, Sy: int) -> np.ndarray:
+    """Host (numpy) label-grid encoder: (N, 5) [cls, x1, y1, x2, y2] ->
+    (6, Sy, Sx) [mask, x1, y1, x2, y2, cls].
+
+    Deterministic last-write-wins ordering, matching the reference python
+    loop (reference: yogo/data/yogo_dataset.py:24-46). Same input contract
+    as ops.boxes.encode_label_grid: padding rows (class < 0) and boxes whose
+    centre is outside [0, 1) are dropped."""
+    out = np.zeros((6, Sy, Sx), dtype=np.float32)
+    labels = np.asarray(labels, dtype=np.float32)
+    if labels.size == 0:
+        return out
+    ii = ((labels[:, 1] + labels[:, 3]) * Sx // 2).astype(np.int64)
+    jj = ((labels[:, 2] + labels[:, 4]) * Sy // 2).astype(np.int64)
+    valid = (labels[:, 0] >= 0) & (ii >= 0) & (ii < Sx) & (jj >= 0) & (jj < Sy)
+    for i, j, row in zip(ii[valid], jj[valid], labels[valid]):
+        out[0, j, i] = 1.0
+        out[1:5, j, i] = row[1:]
+        out[5, j, i] = row[0]
+    return out
