@@ -29,7 +29,22 @@ Phases (any failure exits non-zero):
      Predictor and counted on the golden frames through the stem kernel
      (head equal to the in-memory stack's); step time, its forward /
      backward / optimizer split, images/s and peak memory;
-  7. one JSON line per kernel ("kernels"), then the last line
+  7. the CLI (cli_phase), each command through
+     yogo_tpu_torch.__main__.main(argv): 320 distinct 772x1032 frames written
+     as PNGs with YOLO labels and a 0.6 / 0.2 / 0.2 definition; `train`
+     5 epochs at B=64 bf16 with the packed cache (finite losses, the mean
+     train loss falls, one record a step, best.ckpt and latest.ckpt);
+     `train --resume` in place, one more epoch three times: under
+     torch.profiler (device-busy share of the epoch), with the loader read
+     in the dispatching thread, and as shipped (LR and optimizer counts on
+     the saved clock each time);
+     `test` with the device and the host metrics engine (equal confusion,
+     missed, extra, total); both engines and both designs of the greedy
+     matching loop on the trained golden checkpoint's detections, and one
+     DeviceMetrics.update on the card against the CPU (integer state equal);
+     loader images/s from PNGs and from the packed cache; one epoch without
+     the cache; `infer --count` on best.ckpt through the stem kernel;
+  8. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -373,6 +388,458 @@ def train_phase(dev, imgs4, boxes4, smi, *, batch=TIMING_BATCH, steps=30, small_
     return out, launches
 
 
+def write_png_gray(path: Path, arr: np.ndarray) -> None:
+    """An (H, W) uint8 array as an 8-bit grayscale PNG (filter type 0 on
+    every row, zlib level 1), with the standard library only."""
+    import struct
+    import zlib
+
+    h, w = arr.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    path.write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, 1))
+        + chunk(b"IEND", b"")
+    )
+
+
+def write_dataset(root: Path, n: int, hw) -> Path:
+    """n distinct frames of the golden generator (seeds 1000, 1001, ...) as
+    PNGs with YOLO label files from the generator's own rectangles, and a
+    definition (JSON text in a .yml, which PyYAML reads too) that splits
+    them 0.6 / 0.2 / 0.2."""
+    img_dir, lbl_dir = root / "images", root / "labels"
+    img_dir.mkdir(parents=True)
+    lbl_dir.mkdir()
+    for i in range(n):
+        imgs, boxes = gen_golden_images(1, seed=1000 + i, hw=hw)
+        write_png_gray(img_dir / f"frame_{i:04d}.png", imgs[0, 0])
+        rows = [
+            f"{int(c)} {(x1 + x2) / 2:.6f} {(y1 + y2) / 2:.6f} {x2 - x1:.6f} {y2 - y1:.6f}"
+            for c, x1, y1, x2, y2 in boxes[0].tolist()
+        ]
+        (lbl_dir / f"frame_{i:04d}.txt").write_text("\n".join(rows))
+    defn = root / "defn.yml"
+    defn.write_text(json.dumps({
+        "class_names": ["cell", "parasite"],
+        "dataset_paths": {"smoke": {"image_path": str(img_dir), "label_path": str(lbl_dir)}},
+        "dataset_split_fractions": {"train": 0.6, "val": 0.2, "test": 0.2},
+    }))
+    return defn
+
+
+def busy_share(trace: dict, span: str):
+    """(window ms, device-busy ms, share) of the first profiler span named
+    `span` in a chrome trace of torch.profiler: the union of the kernels
+    and copies (whatever their stream) that lie inside the span's host
+    window. The device-side mirrors of host annotations
+    ("gpu_user_annotation") are not device work and are left out."""
+    events = trace["traceEvents"]
+    window = next((e for e in events if e.get("cat") == "user_annotation" and e["name"] == span), None)
+    if window is None:
+        raise AssertionError(f"the trace holds no span {span!r}")
+    start, end = window["ts"], window["ts"] + window["dur"]
+    spans = sorted(
+        (max(e["ts"], start), min(e["ts"] + e["dur"], end))
+        for e in events
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+        and e["ts"] + e["dur"] > start and e["ts"] < end
+    )
+    busy, edge = 0.0, start
+    for a, b in spans:
+        if b > edge:
+            busy += b - max(a, edge)
+            edge = b
+    if busy <= 0:
+        raise AssertionError(f"the trace holds no device time inside {span!r}")
+    return (end - start) / 1e3, busy / 1e3, busy / (end - start), len(spans)
+
+
+def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_version=None,
+              golden_ckpt=CKPT, probe=True):
+    """Phase 7: `train`, `train --resume`, `test` with both metrics engines,
+    a decode-path epoch and `infer --count`, each through
+    yogo_tpu_torch.__main__.main(argv) as a user would call it. device_arg
+    None runs on the card; "cpu" is for rehearsing the control flow at a
+    small size. The stem's launch counts are set to 0 at the start and read
+    after every command: `train` and `test` must launch it no time (their
+    forward takes the plain stem, as in the JAX package), `infer` at least
+    once. Returns (numbers for the report, stem launches by command). Every
+    check raises."""
+    import os
+    import pickle
+
+    from yogo_tpu_torch.__main__ import main as cli
+    from yogo_tpu_torch.data.definition import DatasetDefinition
+    from yogo_tpu_torch.data.loader import get_dataloader
+    from yogo_tpu_torch.data.prefetch import prefetch_to_device
+    from yogo_tpu_torch.metrics import DeviceMetrics, Metrics
+    from yogo_tpu_torch.metrics import device_metrics as dm
+    from yogo_tpu_torch.models.yogo import resolve_device
+    from yogo_tpu_torch.ops.postprocess import format_preds_batched
+    from yogo_tpu_torch.ops.stem import LAUNCHES
+    from yogo_tpu_torch.train import make_eval_step, make_optimizer
+    from yogo_tpu_torch.utils.checkpoint import load_checkpoint
+    from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
+    from yogo_tpu_torch.utils.msgpack_lite import unpackb
+    from yogo_tpu_torch.utils.weights import state_dict_from_flax
+
+    out = {}
+    by_command = {}
+    LAUNCHES.clear()
+
+    def launches_of(command, *, stem):
+        """Book the stem launches since the last call under `command`."""
+        by_command[command] = dict(LAUNCHES)
+        LAUNCHES.clear()
+        if stem != bool(by_command[command]):
+            raise AssertionError(f"stem launches in `{command}`: {by_command[command]}, "
+                                 f"expected {'some' if stem else 'none'}")
+
+    dev = resolve_device(device_arg)
+    on_card = dev.type == "cuda"
+    dev_flags = [] if device_arg is None else ["--device", device_arg]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def wall(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    if probe:
+        def has(mod):
+            try:
+                __import__(mod)
+                return True
+            except ImportError:
+                return False
+
+        from yogo_tpu_torch import native
+
+        out["probe"] = {
+            "yaml": has("yaml"), "PIL": has("PIL"), "wandb": has("wandb"),
+            "g++": subprocess.run(["sh", "-c", "command -v g++"], capture_output=True).returncode == 0,
+            "png.h": Path("/usr/include/png.h").exists(),
+            "jpeglib.h": Path("/usr/include/jpeglib.h").exists(),
+            "native_host_library": native.available(),
+        }
+        log("probe: " + json.dumps(out["probe"]))
+
+    cwd = os.getcwd()
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_ctx.name)
+    try:
+        os.chdir(tmp)
+        # ------------------------------------------------------------- data
+        defn, secs = wall(lambda: write_dataset(tmp / "data", n_frames, hw))
+        n_train, n_val, n_test = (int(round(f * n_frames)) for f in (0.6, 0.2, 0.2))
+        steps_per_epoch = -(-n_train // batch)
+        out["dataset"] = {"frames": n_frames, "hw": list(hw), "write_s": secs,
+                          "split": [n_train, n_val, n_test]}
+        size = ["--image-hw", str(hw[0]), str(hw[1])]
+        common = [str(defn), "--batch-size", str(batch), "--half", "--no-wandb", *size, *dev_flags]
+        if model_version:
+            common += ["--model", model_version]
+        cache = str(tmp / "packed")
+
+        def records(run):
+            lines = [json.loads(ln) for ln in (run / "metrics.jsonl").read_text().splitlines()]
+            return ([r for r in lines if "train loss" in r], [r for r in lines if "val loss" in r],
+                    [r["_summary"] for r in lines if "_summary" in r])
+
+        # ------------------------------------------------- train, 5 epochs
+        epochs = 5
+        _, secs = wall(lambda: cli(["train", *common, "--epochs", str(epochs),
+                                    "--packed-cache", cache, "--name", "smoke"]))
+        launches_of("train", stem=False)
+        run = tmp / "trained_models" / "smoke"
+        train_recs, val_recs, summaries = records(run)
+        if [r["step"] for r in train_recs] != list(range(1, epochs * steps_per_epoch + 1)):
+            raise AssertionError(f"metrics.jsonl steps: {[r['step'] for r in train_recs]}")
+        logged = [r[k] for r in train_recs for k in ("train loss", "iou_loss", "objectness_loss",
+                                                       "classification_loss")]
+        logged += [r["val loss"] for r in val_recs]
+        if not all(np.isfinite(logged)):
+            raise AssertionError(f"non-finite logged loss: {logged}")
+        by_epoch = [float(np.mean([r["train loss"] for r in train_recs if r["epoch"] == e]))
+                    for e in range(epochs)]
+        if not by_epoch[-1] < by_epoch[0]:
+            raise AssertionError(f"mean train loss by epoch did not fall: {by_epoch}")
+        if len(val_recs) != 2 or not (run / "best.ckpt").exists():
+            raise AssertionError(f"validation records {val_recs}, files {sorted(os.listdir(run))}")
+        _, _, meta = load_checkpoint(run / "latest.ckpt")
+        if meta["next_epoch"] != epochs or meta["step"] != epochs * steps_per_epoch:
+            raise AssertionError(f"latest.ckpt: next_epoch {meta['next_epoch']}, step {meta['step']}")
+        if len(summaries) != 1 or not np.isfinite(summaries[0]["test loss"]):
+            raise AssertionError(f"post-train test summary: {summaries}")
+        config = json.loads((run / "config.json").read_text())
+        out["train"] = {
+            "command_s": secs, "epochs": epochs, "steps_per_epoch": steps_per_epoch,
+            "mean_train_loss_by_epoch": by_epoch,
+            "val_losses": [r["val loss"] for r in val_recs],
+            "images_per_sec_by_epoch": [
+                [r["images/sec"] for r in train_recs if r["epoch"] == e][-1] for e in range(epochs)],
+            "test_loss": summaries[0]["test loss"],
+            "test_total_true_objects": summaries[0]["total num true objects"],
+            "config_device": config["device"], "torch_version": config["torch-version"],
+        }
+        log(f"cli train {epochs} epochs B={batch}: {secs:.1f} s, mean train loss by epoch "
+            f"{[round(v, 4) for v in by_epoch]}, val {out['train']['val_losses']}, images/sec by "
+            f"epoch {[round(v, 1) for v in out['train']['images_per_sec_by_epoch']]}, "
+            f"device {config['device']!r}")
+
+        # ---- resume in place, one more epoch each time: traced, then not
+        from torch.profiler import ProfilerActivity, profile
+
+        out["resume"] = {}
+        n_summaries = 1
+        for label in ("traced", "untraced"):
+            epoch = epochs
+            epochs += 1
+            total = epochs * steps_per_epoch
+            argv = ["train", *common, "--epochs", str(epochs), "--packed-cache", cache, "--resume",
+                    "--from-pretrained", str(run / "latest.ckpt")]
+            prof = None
+            if label == "traced":
+                acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+                with profile(activities=acts) as prof:
+                    _, secs = wall(lambda: cli(argv))
+            else:
+                _, secs = wall(lambda: cli(argv))
+            launches_of(f"train --resume ({label})", stem=False)
+            n_summaries += 1
+            train_recs, val_recs, summaries = records(run)
+            new = [r for r in train_recs if r["step"] > epoch * steps_per_epoch]
+            if [r["step"] for r in new] != list(range(epoch * steps_per_epoch + 1, total + 1)) or \
+                    any(r["epoch"] != epoch for r in new):
+                raise AssertionError(f"resumed records: {[(r['step'], r['epoch']) for r in new]}")
+            # the restored optimizer count: the schedule runs on the saved clock
+            # (its horizon is this run's --epochs)
+            _, _, host_schedule = make_optimizer(
+                [torch.nn.Parameter(torch.zeros(1))], df.LEARNING_RATE, df.WEIGHT_DECAY,
+                df.DECAY_FACTOR, total)
+            for r in new:
+                if not np.isclose(r["LR"], host_schedule(r["step"]), rtol=1e-9):
+                    raise AssertionError(f"resumed LR at step {r['step']}: {r['LR']} vs "
+                                         f"{host_schedule(r['step'])}")
+            _, _, meta = load_checkpoint(run / "latest.ckpt")
+            counts = unpackb(meta["_opt_state_bytes"])["1"]
+            counts = (int(counts["0"]["count"]), int(counts["2"]["count"]))  # AdamW, schedule
+            if meta["next_epoch"] != epochs or meta["step"] != total or len(summaries) != n_summaries \
+                    or counts != (total, total):
+                raise AssertionError(f"after resume: next_epoch {meta['next_epoch']}, step {meta['step']}, "
+                                     f"{len(summaries)} summaries, optimizer counts {counts}")
+            if not all(np.isfinite([r["train loss"] for r in new])):
+                raise AssertionError(f"resumed losses: {new}")
+            out["resume"][label] = {"command_s": secs, "epoch": epoch, "steps": [r["step"] for r in new],
+                                    "train_losses": [r["train loss"] for r in new],
+                                    "images_per_sec": new[-1]["images/sec"]}
+            if prof is not None and on_card:
+                prof.export_chrome_trace(str(tmp / "resume_trace.json"))
+                trace = json.loads((tmp / "resume_trace.json").read_text())
+                spans = {}
+                for span in ("yogo/train_epoch", "yogo/checkpoint", "yogo/test"):
+                    w_ms, b_ms, share, n = busy_share(trace, span)
+                    spans[span] = {"window_ms": w_ms, "device_busy_ms": b_ms, "busy_share": share,
+                                   "device_events": n}
+                out["resume"][label]["profiler_spans"] = spans
+                del trace
+            del prof
+        log("cli resume, in place, LR and optimizer counts on the saved clock: " + json.dumps(out["resume"]))
+
+        # ------------------------------------------ test with both engines
+        engines = {}
+        for name, flag in (("device", "--fast-eval"), ("host", "--no-fast-eval")):
+            for attempt in ("cold", "warm"):
+                _, secs = wall(lambda: cli(["test", str(run / "best.ckpt"), str(defn), flag,
+                                            "--include-mAP", "--dump-to-disk",
+                                            "--packed-cache", cache, *dev_flags]))
+                engines.setdefault(name, {})[f"command_s_{attempt}"] = secs
+            launches_of(f"test {flag}", stem=False)
+            with open("test_metrics.pkl", "rb") as f:
+                engines[name]["metrics"] = pickle.load(f)
+        md, mh = engines["device"]["metrics"], engines["host"]["metrics"]
+        for i, what in ((2, "confusion"), (8, "missed"), (9, "extra"), (10, "total true objects")):
+            if not np.array_equal(np.asarray(md[i]), np.asarray(mh[i])):
+                raise AssertionError(f"test {what}: device engine {md[i]} vs host engine {mh[i]}")
+        if not np.isclose(md[0], mh[0], rtol=1e-6) or not np.isfinite(md[0]):
+            raise AssertionError(f"test loss: {md[0]} vs {mh[0]}")
+        out["test_best_ckpt"] = {
+            "loss": md[0], "confusion": np.asarray(md[2]).tolist(),
+            "missed": np.asarray(md[8]).tolist(), "extra": np.asarray(md[9]).tolist(),
+            "total_true_objects": int(md[10][0]), "mAP_device": md[1]["map"], "mAP_host": mh[1]["map"],
+            **{f"{n}_engine_{k}": v for n, e in engines.items() for k, v in e.items() if k != "metrics"},
+        }
+        log("cli test best.ckpt, device engine == host engine: " + json.dumps(out["test_best_ckpt"]))
+
+        # ---- the engines on real detections: the trained golden checkpoint
+        # over the same test split (its classes are the generator's)
+        if golden_ckpt is not None and tuple(hw) == HW:
+            model, variables, _ = load_checkpoint(golden_ckpt)
+            model = model.with_compute_dtype(torch.bfloat16)
+            stack = model.module(dev)
+            stack.load_state_dict(state_dict_from_flax(variables), strict=True)
+            sx, sy = model.grid
+            loader = get_dataloader(DatasetDefinition.from_yaml(defn), batch, Sx=sx, Sy=sy,
+                                    image_hw=hw, packed_cache=cache)["test"]
+            eval_step = make_eval_step(model, dict(
+                no_obj_weight=df.NO_OBJ_WEIGHT, iou_weight=df.IOU_WEIGHT,
+                classify_weight=df.CLASSIFY_WEIGHT, label_smoothing=df.LABEL_SMOOTHING))
+            imgs, labels, mask = next(iter(prefetch_to_device(loader, dev)))
+            _, preds = eval_step(stack, imgs, labels, mask)
+            classes = ["cell", "parasite"]
+
+            def timed(fn, reps=7):
+                fn()
+                ts = [wall(fn)[1] * 1e3 for _ in range(reps)]
+                return statistics.median(ts)
+
+            # one DeviceMetrics.update on the card against the CPU: the
+            # integer state must be equal, the lone float sum close
+            states = {}
+            for where in (dev, torch.device("cpu")):
+                m = DeviceMetrics(classes, device=where, include_background=True)
+                m.update(preds.to(where), labels.to(where), image_mask=mask.to(where))
+                states[where.type] = {k: v.cpu() for k, v in m._state.items()}
+            for k, v in states["cpu"].items():
+                got = states[dev.type][k]
+                if v.is_floating_point():
+                    torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-5, msg=lambda m, k=k: f"{k}: {m}")
+                elif not torch.equal(got, v):
+                    raise AssertionError(f"DeviceMetrics state {k}: card != CPU")
+            engines = {}
+            for name, m in (("device", DeviceMetrics(classes, device=dev, include_background=False)),
+                            ("host", Metrics(classes, include_background=False))):
+                m.update(preds, labels, image_mask=mask)
+                res = m.compute()
+                m.reset()
+                engines[name] = {
+                    "confusion": res[1].tolist(), "missed": res[7].tolist(), "extra": res[8].tolist(),
+                    "total_true_objects": int(res[9][0]), "mAP": float(res[0]["map"]),
+                    "update_ms": timed(lambda m=m: m.update(preds, labels, image_mask=mask)),
+                }
+            # NMS-filtered detections of a trained net: greedy and Hungarian agree
+            for k in ("confusion", "missed", "extra", "total_true_objects"):
+                if engines["device"][k] != engines["host"][k]:
+                    raise AssertionError(f"{k} differs between the engines on the trained golden "
+                                         f"checkpoint: {engines}")
+            if engines["device"]["total_true_objects"] == 0 or not np.any(engines["device"]["confusion"]):
+                raise AssertionError(f"the golden checkpoint matched nothing: {engines}")
+            forward_ms = timed(lambda: eval_step(stack, imgs, labels, mask))
+            # the greedy loop alone, for both designs, on this batch
+            dets = format_preds_batched(preds.float(), min_class_confidence_threshold=0.9,
+                                        max_detections=256, image_mask=mask)
+            flat = labels.reshape(batch, 6, -1).transpose(1, 2)
+            key = (flat[..., 0] > 0.5).float() * 2.0 - torch.arange(
+                flat.shape[1], device=dev, dtype=torch.float32) / flat.shape[1]
+            gt = torch.gather(flat, 1, torch.topk(key, 256, dim=1)[1][..., None].expand(-1, -1, 6))
+            iou = dm._batched_box_iou(dets["boxes_xyxy"].float(), gt[..., 1:5].float())
+            iou = torch.where(torch.isfinite(iou), iou, 0.0)
+            gt_valid = gt[..., 0] > 0.5
+
+            def fixed_rounds():
+                """The other loop design: min(K, G) rounds, the host never asks."""
+                iou_w, partner, taken = dm._match_state(iou, dets["valid"], gt_valid)
+                for _ in range(min(iou.shape[1:])):
+                    dm._greedy_round(iou_w, partner, taken)
+                return dm._pair_remainder(partner, taken, dets["valid"], gt_valid)
+
+            want = dm.greedy_match(iou, dets["valid"], gt_valid)
+            if not all(torch.equal(a, b) for a, b in zip(fixed_rounds(), want)):
+                raise AssertionError("greedy_match: the fixed-rounds loop pairs differently")
+            loops = {
+                "sync_every_round_ms": timed(lambda: dm.greedy_match(iou, dets["valid"], gt_valid)),
+                "fixed_rounds_ms": timed(fixed_rounds),
+                "fixed_rounds": min(iou.shape[1:]),
+                "matched_pairs_max_per_image": int((want[0] >= 0).sum(dim=1).max()),
+            }
+            out["golden_ckpt_eval"] = {
+                "batch": batch, "detections": int(dets["valid"].sum()), "labels": int(gt_valid.sum()),
+                "engines": engines, "engines_equal": True,
+                "forward_ms": forward_ms,
+                "eval_img_per_s": {n: batch / (forward_ms + e["update_ms"]) * 1e3
+                                   for n, e in engines.items()},
+                "greedy_match": loops,
+                "device_metrics_state_card_equals_cpu": True,
+            }
+            log("golden checkpoint on the test split, both engines: " + json.dumps(out["golden_ckpt_eval"]))
+            del stack, preds, imgs, labels, mask, iou, dets
+
+        # ------------------------------------- loader rates, host only
+        sx, sy = load_checkpoint(run / "best.ckpt")[0].grid
+        rates = {}
+        for name, pc in (("png_decode", None), ("packed_cache", cache)):
+            loader = get_dataloader(DatasetDefinition.from_yaml(defn), batch, Sx=sx, Sy=sy,
+                                    image_hw=hw, packed_cache=pc)["train"]
+            t0 = time.perf_counter()
+            n = sum(int(m.sum()) for _, _, m in loader)
+            rates[name + "_img_per_s"] = n / (time.perf_counter() - t0)
+        out["loader_host_only"] = rates
+        log("loader, host only (train split, one epoch): " + json.dumps(rates))
+
+        # ----------------------------------- one epoch on the decode path
+        _, secs = wall(lambda: cli(["train", *common, "--epochs", "1", "--name", "decode"]))
+        launches_of("train (png decode)", stem=False)
+        recs, _, sums = records(tmp / "trained_models" / "decode")
+        if len(recs) != steps_per_epoch or not all(np.isfinite([r["train loss"] for r in recs])) \
+                or len(sums) != 1:
+            raise AssertionError(f"decode-path epoch: {recs}")
+        out["decode_epoch"] = {"command_s": secs, "images_per_sec": recs[-1]["images/sec"],
+                               "train_losses": [r["train loss"] for r in recs]}
+        log("cli train 1 epoch without the packed cache: " + json.dumps(out["decode_epoch"]))
+
+        # ------- infer --count: the checkpoint just trained, and the golden one
+        import ast
+        import contextlib
+        import io
+
+        test_dir = tmp / "test_frames"
+        test_dir.mkdir()
+        n_labels = 0
+        for i in range(8):
+            os.link(tmp / "data" / "images" / f"frame_{i:04d}.png", test_dir / f"frame_{i:04d}.png")
+            n_labels += len((tmp / "data" / "labels" / f"frame_{i:04d}.txt").read_text().splitlines())
+        out["infer_count"] = {"frames": 8, "labels": n_labels}
+        ckpts = {"best.ckpt": run / "best.ckpt"}
+        if golden_ckpt is not None and tuple(hw) == HW:
+            ckpts["golden"] = golden_ckpt
+        for name, ckpt in ckpts.items():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli(["infer", str(ckpt), "--path-to-images", str(test_dir), "--count",
+                     "--half", "--batch-size", str(batch), *dev_flags])
+            launches_of(f"infer {name}", stem=on_card)
+            printed = buf.getvalue().strip().splitlines()[-1]
+            counts = dict(ast.literal_eval(printed))
+            out["infer_count"][name] = {"printed": printed, "stem_launches": by_command[f"infer {name}"]}
+            log(f"cli infer --count on {name}: {printed} ({n_labels} labels in these frames); "
+                f"stem launches {by_command[f'infer {name}']}")
+            if sorted(counts) != ["cell", "parasite"] or not all(isinstance(v, int) for v in counts.values()):
+                raise AssertionError(f"infer --count on {name} printed {printed!r}")
+            # the trained golden net finds the generator's rectangles (the
+            # metrics engines above see it miss ~6% of the labels): the count
+            # is within a tenth of the labelled objects
+            if name == "golden" and abs(sum(counts.values()) - n_labels) > 0.1 * n_labels:
+                raise AssertionError(f"infer --count on the golden checkpoint: {printed} for "
+                                     f"{n_labels} labelled objects")
+        out["stem_launches_by_command"] = by_command
+        log("stem launches by command: " + json.dumps(by_command))
+        return out, by_command
+    finally:
+        os.chdir(cwd)
+        tmp_ctx.cleanup()
+
+
 def main() -> int:
     # ------------------------------------------------------------ 1. device
     if not torch.cuda.is_available():
@@ -579,7 +1046,21 @@ def main() -> int:
         if train_launches.get(f"stem_{layout}", 0) < 1:
             raise AssertionError(f"stem_{layout} was not launched with the trained weights")
 
-    # ------------------------------------------------------------ 7. report
+    # ------------------------------------- 7. train / test / infer, by CLI
+    torch.cuda.empty_cache()
+    report["cli"], cli_launches = cli_phase(None)
+    cli_stem = {f"stem_{layout}": {c: n.get(f"stem_{layout}", 0) for c, n in cli_launches.items()}
+                for layout in ("nhwc", "nchw")}
+    if cli_stem["stem_nhwc"]["infer best.ckpt"] < 1:
+        raise AssertionError("infer --count on the trained checkpoint did not launch the stem kernel")
+    report["cli"]["step_img_per_s_resident_batch"] = report["training"]["timing"]["none"]["img_per_s"]
+    log("trainer images/sec against the resident-batch step rate: " + json.dumps({
+        "trainer_by_epoch": report["cli"]["train"]["images_per_sec_by_epoch"],
+        "trainer_resumed_epochs": {k: v["images_per_sec"] for k, v in report["cli"]["resume"].items()},
+        "decode_path_epoch": report["cli"]["decode_epoch"]["images_per_sec"],
+        "resident_batch_step": report["cli"]["step_img_per_s_resident_batch"]}))
+
+    # ------------------------------------------------------------ 8. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -589,6 +1070,7 @@ def main() -> int:
             "replaces": f"yogo_tpu/ops/pallas_stem.py:{line}",
             "launches": launches[f"stem_{layout}"],
             "launches_train_round_trip": train_launches[f"stem_{layout}"],
+            "launches_cli_by_command": cli_stem[f"stem_{layout}"],
             "max_abs_err": max_err[layout],
             "ms": timing[layout]["ms"],
             "plain_ms": timing[layout]["plain_ms"],

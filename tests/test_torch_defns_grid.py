@@ -63,7 +63,8 @@ def test_temporary_model_scoped():
 
 def test_port_imports_no_jax():
     """Every module of yogo_tpu_torch imports without pulling in jax, flax,
-    optax, msgpack or yogo_tpu."""
+    optax, msgpack or yogo_tpu, and without PIL or yaml, which the machine
+    it runs on may lack: those two are imported where they are used."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "yogo_tpu_torch").rglob("*.py")
@@ -73,7 +74,8 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'yogo_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'msgpack', 'yogo_tpu', 'PIL', 'yaml'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -82,6 +84,9 @@ def test_port_imports_no_jax():
     )
     assert r.returncode == 0, r.stderr
     assert any(m.endswith("__main__") for m in mods) and len(mods) > 15
+    for new in ("data.loader", "data.packed_cache", "data.prefetch", "metrics.device_metrics",
+                "native", "utils.argparsers", "utils.logging", "utils.test_model"):
+        assert f"yogo_tpu_torch.{new}" in mods
 
 
 def test_chip_smoke_imports_no_jax():
@@ -93,7 +98,7 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
     assert "yogo_tpu_torch" in roots and "torch" in roots
-    assert not roots & {"jax", "flax", "optax", "msgpack", "yogo_tpu"}, roots
+    assert not roots & {"jax", "flax", "optax", "msgpack", "yogo_tpu", "PIL", "yaml"}, roots
 
 
 def test_entry_points_require_cuda_by_default(tmp_path):

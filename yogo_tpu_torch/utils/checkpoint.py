@@ -5,7 +5,8 @@ The file is one msgpack map {"meta": JSON str, "variables": flax tree,
 ["opt_state": bytes]}, format "yogo_tpu.ckpt.v1", the same the JAX package
 reads and writes: a checkpoint of either package resumes in the other. It
 is coded with the port's own `msgpack_lite`, so neither msgpack nor flax is
-needed. Reading reference `.pth` files is not ported yet.
+needed. Reading reference `.pth` files is not ported yet (`load_any`
+says so).
 """
 
 from __future__ import annotations
@@ -122,6 +123,26 @@ def load_checkpoint(
     if "opt_state" in payload:
         meta["_opt_state_bytes"] = payload["opt_state"]
     return model, variables, meta
+
+
+def load_any(path: Union[str, Path]):
+    """Load a checkpoint whatever its suffix (dispatch on content),
+    returning (model, variables, meta) as load_checkpoint does. Reference
+    `.pth` files (torch zips) are recognised and refused: their reader is
+    not ported yet."""
+    path = Path(path)
+    is_pth = path.suffix == ".pth"
+    if not is_pth and path.suffix != CKPT_SUFFIX:
+        # sniff: msgpack checkpoints start with a map byte, torch zips "PK"
+        with open(path, "rb") as f:
+            is_pth = f.read(2) == b"PK"
+    if is_pth:
+        raise NotImplementedError(
+            f"{path}: reading reference .pth checkpoints is not ported yet "
+            "(ROADMAP.md Queue 1 item 2); convert it with the JAX package "
+            "or pass a .ckpt"
+        )
+    return load_checkpoint(path)
 
 
 def restore_opt_state(
