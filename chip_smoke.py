@@ -9,8 +9,10 @@ Phases (any failure exits non-zero):
      ptxas's registers / spills and a SASS summary per kernel (cuobjdump);
   3. kernels against their plain PyTorch versions on the card: the stem
      kernel in both layouts on block-0 weights of the trained base_model
-     checkpoint at 772x1032 (B=2 and the B=64 timing batch) and at an odd
-     shape, within 1 bf16 ulp (rtol 8e-3, atol 1e-2);
+     checkpoint at 772x1032 (B=2; B=4, the batch of phases 4 and 6; B=8,
+     phase 8's smaller server; the B=64 timing batch, also phases 5, 7 and
+     8's larger server) and at an odd shape, within 1 bf16 ulp (rtol 8e-3,
+     atol 1e-2);
   4. main path: `infer --count` through the port's Predictor on the
      golden scene (4 images of tests/test_golden_fullres.py's generator):
      bf16 in both block layouts (the stem launch counters must move) within
@@ -44,7 +46,22 @@ Phases (any failure exits non-zero):
      DeviceMetrics.update on the card against the CPU (integer state equal);
      loader images/s from PNGs and from the packed cache; one epoch without
      the cache; `infer --count` on best.ckpt through the stem kernel;
-  8. one JSON line per kernel ("kernels"), then the last line
+     `infer --save-preds --save-npy --count` on the golden checkpoint with
+     --fetch-top-k 512 (candidates), 16 (full-slice fallbacks) and 0 (full
+     tensors): the files byte-equal; `infer --draw-boxes`;
+  8. serve (serve_phase), the golden checkpoint bf16 at micro-batch 8 and
+     64, each server in a thread on port 0: the 4 golden frames as PNG, as
+     raw frames and as one 4-frame raw request, equal to one another and to
+     the host formatter over Predictor.forward of a batch of the server's
+     shape, within +-2 of the golden per-image counts; a low threshold takes
+     the full-slice fallback (counted in /metrics) and is still equal;
+     16-64 client threads stream raw frames for ~10 s with a hot reload in
+     the middle (zero errors, answers unchanged, no kernel rebuilt);
+     over one window (tools/serve_load.measure): requests/s and images/s
+     from /metrics, latency p50/p99 of the requests that ended in it, batch
+     occupancy, the server's mean timers; then the device-busy share under
+     the same load (torch.profiler); a small --max-queue answers 503;
+  9. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -53,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -62,6 +80,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from yogo_tpu_torch.tools.golden_scene import gen_golden_images
 
 REPO = Path(__file__).resolve().parent
 CKPT = REPO / "tests" / "goldens" / "trained_base_model_fullres.ckpt"
@@ -78,31 +98,6 @@ F32_RATE = 67e12
 
 def log(*a):
     print(*a, flush=True)
-
-
-def gen_golden_images(n: int = 4, seed: int = 3, hw=HW):
-    """((n, 1, 772, 1032) uint8, n label arrays (N_i, 5) [class, x1, y1,
-    x2, y2] in image fractions): the frozen generator of
-    tests/test_golden_fullres.py (gen_test_images), without the PNG round
-    trip (which is lossless), and with every blob's class and rectangle."""
-    h, w = hw
-    blobs = {0: (36, 36), 1: (24, 48)}
-    r = np.random.default_rng(seed)
-    out, labels = [], []
-    for _ in range(n):
-        arr = np.full((h, w), 225, np.uint8)
-        rows = []
-        for _ in range(int(r.integers(20, 61))):
-            cls = int(r.integers(0, 2))
-            bh, bw = blobs[cls]
-            y = int(r.integers(2, h - 2 - bh))
-            x = int(r.integers(2, w - 2 - bw))
-            arr[y : y + bh, x : x + bw] = 60 if cls == 0 else 130
-            rows.append([cls, x / w, y / h, (x + bw) / w, (y + bh) / h])
-        arr += r.integers(0, 12, arr.shape).astype(np.uint8)
-        out.append(arr)
-        labels.append(np.asarray(rows, np.float32))
-    return np.stack(out)[:, None], labels
 
 
 def mem_rate(name: str) -> float:
@@ -388,7 +383,7 @@ def train_phase(dev, imgs4, boxes4, smi, *, batch=TIMING_BATCH, steps=30, small_
     return out, launches
 
 
-def write_png_gray(path: Path, arr: np.ndarray) -> None:
+def png_gray_bytes(arr: np.ndarray) -> bytes:
     """An (H, W) uint8 array as an 8-bit grayscale PNG (filter type 0 on
     every row, zlib level 1), with the standard library only."""
     import struct
@@ -400,12 +395,16 @@ def write_png_gray(path: Path, arr: np.ndarray) -> None:
     def chunk(kind: bytes, data: bytes) -> bytes:
         return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
-    path.write_bytes(
+    return (
         b"\x89PNG\r\n\x1a\n"
         + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(raw, 1))
         + chunk(b"IEND", b"")
     )
+
+
+def write_png_gray(path: Path, arr: np.ndarray) -> None:
+    path.write_bytes(png_gray_bytes(arr))
 
 
 def write_dataset(root: Path, n: int, hw) -> Path:
@@ -471,7 +470,6 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
     forward takes the plain stem, as in the JAX package), `infer` at least
     once. Returns (numbers for the report, stem launches by command). Every
     check raises."""
-    import os
     import pickle
 
     from yogo_tpu_torch.__main__ import main as cli
@@ -817,7 +815,7 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 cli(["infer", str(ckpt), "--path-to-images", str(test_dir), "--count",
-                     "--half", "--batch-size", str(batch), *dev_flags])
+                     "--half", "--batch-size", str(batch), "--no-use-tqdm", *dev_flags])
             launches_of(f"infer {name}", stem=on_card)
             printed = buf.getvalue().strip().splitlines()[-1]
             counts = dict(ast.literal_eval(printed))
@@ -832,12 +830,235 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
             if name == "golden" and abs(sum(counts.values()) - n_labels) > 0.1 * n_labels:
                 raise AssertionError(f"infer --count on the golden checkpoint: {printed} for "
                                      f"{n_labels} labelled objects")
+
+        # ---- infer artifacts: --fetch-top-k 512 (candidates), 16 (every
+        # frame's full slice) and 0 (full tensors) write the same files, byte
+        # for byte; --draw-boxes draws every frame
+        art_ckpt = ckpts.get("golden", run / "best.ckpt")
+        arts, files = {}, {}
+        for k in (512, 16, 0):
+            odir = tmp / f"artifacts_k{k}"
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _, secs = wall(lambda: cli([
+                    "infer", str(art_ckpt), "--path-to-images", str(test_dir), "--save-preds",
+                    "--save-npy", "--count", "--half", "--batch-size", str(batch), "--fetch-top-k",
+                    str(k), "--output-dir", str(odir), "--no-use-tqdm", *dev_flags]))
+            command = f"infer --save-preds --save-npy --fetch-top-k {k}"
+            launches_of(command, stem=on_card)
+            files[k] = {p.name: p.read_bytes() for p in sorted(odir.iterdir())}
+            sidecar = next(n for n in files[k] if n.endswith(".json"))
+            meta = json.loads(files[k].pop(sidecar))
+            meta.pop("write_date")
+            arts[k] = {"printed": buf.getvalue().strip().splitlines()[-1], "command_s": secs,
+                       "files": len(files[k]), "sidecar": meta, "stem_launches": by_command[command]}
+        n_txt = sum(n.endswith(".txt") for n in files[0])
+        if n_txt != 8 or sum(n.endswith(".npy") for n in files[0]) != 1:
+            raise AssertionError(f"infer artifacts: {sorted(files[0])}")
+        for k in (512, 16):
+            if files[k] != files[0] or arts[k]["printed"] != arts[0]["printed"] \
+                    or arts[k]["sidecar"] != arts[0]["sidecar"]:
+                diff = sorted(n for n in files[0] if files[k].get(n) != files[0][n])
+                raise AssertionError(f"infer --fetch-top-k {k} differs from full tensors: {diff}, "
+                                     f"{arts[k]['printed']} vs {arts[0]['printed']}")
+        draw_dir = tmp / "drawn"
+        _, secs = wall(lambda: cli(["infer", str(art_ckpt), "--path-to-images", str(test_dir),
+                                    "--draw-boxes", "--half", "--batch-size", str(batch),
+                                    "--output-dir", str(draw_dir), "--no-use-tqdm", *dev_flags]))
+        launches_of("infer --draw-boxes", stem=on_card)
+        drawn = sorted(p.name for p in draw_dir.iterdir())
+        if drawn != sorted(p.name for p in test_dir.iterdir()):
+            raise AssertionError(f"infer --draw-boxes wrote {drawn}")
+        arts["draw_boxes"] = {"command_s": secs, "images": len(drawn)}
+        out["infer_artifacts"] = {"checkpoint": art_ckpt.name, "byte_equal_512_16_0": True,
+                                  **{str(k): v for k, v in arts.items()}}
+        log("cli infer artifacts, files byte-equal for --fetch-top-k 512 / 16 / 0: "
+            + json.dumps(out["infer_artifacts"]))
         out["stem_launches_by_command"] = by_command
         log("stem launches by command: " + json.dumps(by_command))
         return out, by_command
     finally:
         os.chdir(cwd)
         tmp_ctx.cleanup()
+
+
+def serve_phase(device_arg, imgs4, *, ckpt=CKPT, want_per_image=None, batches=(8, 64),
+                load_s=10.0, threads=None, fetch_top_k=512):
+    """Phase 8: `serve` on `ckpt`, bf16, one server per micro-batch size in
+    `batches`, each in a thread on port 0, driven through the port's
+    ServeClient and raw HTTP as a camera client would. device_arg None runs
+    on the card; "cpu" rehearses the control flow. The stem's launch counts
+    are set to 0 just before each server is built and read after it is shut
+    down. Returns (numbers for the report, stem launches by batch size).
+    Every check raises."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from yogo_tpu_torch import kernels
+    from yogo_tpu_torch.infer import Predictor
+    from yogo_tpu_torch.models.yogo import resolve_device
+    from yogo_tpu_torch.ops.stem import LAUNCHES
+    from yogo_tpu_torch.serve import build_server, format_detections
+    from yogo_tpu_torch.serve_client import ServeClient
+    from yogo_tpu_torch.tools import serve_load
+
+    dev = resolve_device(device_arg)
+    on_card = dev.type == "cuda"
+    threads = threads or {8: 32, 64: 64}
+    frames = [np.ascontiguousarray(f) for f in imgs4]  # (1, H, W) uint8 each
+    n = len(frames)
+    thr = {"obj_thresh": 0.5, "iou_thresh": 0.5, "min_class_confidence_threshold": 0.0}
+    ref = Predictor.from_checkpoint(ckpt, half=True, device=dev)
+    classes = list(ref.meta.get("class_names") or ref.meta.get("classes"))
+    out, launches = {}, {}
+
+    def post(port, body, path="/predict", ctype=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method="POST",
+                                     headers={"Content-Type": ctype} if ctype else {})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, dict(r.headers), json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), json.loads(e.read())
+
+    def serving(**kw):
+        srv = build_server(ckpt, port=0, half=True, device=dev, fetch_top_k=fetch_top_k, **kw)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+
+        def stop():
+            srv.shutdown()
+            srv.yogo_batcher.shutdown()
+            srv.server_close()
+            th.join(timeout=30)
+
+        return srv, stop
+
+    for bsz in batches:
+        # the host formatter over Predictor.forward of batches of the
+        # server's shape: the frames in the first slots, zero frames after
+        decoded = []
+        for i in range(0, n, bsz):
+            x = np.zeros((bsz, *frames[0].shape), np.uint8)
+            x[: len(frames[i:i + bsz])] = np.stack(frames[i:i + bsz])
+            decoded += list(ref.forward(x)[: len(frames[i:i + bsz])].cpu().numpy())
+        want = [format_detections(d, classes, **thr) for d in decoded]
+        # half the K-th objectness of frame 0: more than K cells pass, so
+        # the candidates cannot prove the answer and the full slice serves it
+        kth = float(np.sort(decoded[0][4].ravel())[-fetch_top_k])
+        low = dict(thr, obj_thresh=kth / 2)
+        want_low = format_detections(decoded[0], classes, **low)
+
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        srv, stop = serving(batch_size=bsz, linger_ms=5.0)
+        rep = {"build_and_warmup_s": time.perf_counter() - t0, "client_threads": threads[bsz]}
+        try:
+            port = srv.server_address[1]
+            with ServeClient("127.0.0.1", port, timeout=120) as c:
+                raw_single = [c.predict(f) for f in frames]
+                raw_batch = c.predict_many(np.stack(frames))
+                png = [post(port, png_gray_bytes(f[0]))[2] for f in frames]
+                m0 = c.metrics()
+                got_low = c.predict(frames[0], **low)
+                m1 = c.metrics()
+            per_image = [sum(r["counts"].values()) for r in raw_single]
+            for name, got in (("raw frames", raw_single), ("one raw batch request", raw_batch),
+                              ("PNG", png)):
+                if got != want:
+                    bad = [i for i in range(n) if got[i] != want[i]]
+                    raise AssertionError(f"serve B={bsz}: {name} differ from the host formatter over "
+                                         f"Predictor.forward on frames {bad}")
+            if want_per_image is not None and any(
+                    abs(a - b) > 2 for a, b in zip(per_image, want_per_image)):
+                raise AssertionError(f"serve B={bsz}: per-image counts {per_image} vs golden {want_per_image}")
+            fallbacks = m1["full_fetch_fallbacks"] - m0["full_fetch_fallbacks"]
+            if fallbacks != 1:
+                raise AssertionError(f"serve B={bsz}: obj_thresh {low['obj_thresh']} took {fallbacks} "
+                                     "fallbacks, not 1")
+            if got_low != want_low:
+                raise AssertionError(f"serve B={bsz}: obj_thresh {low['obj_thresh']} differs from the "
+                                     "host formatter")
+            rep.update(per_image=per_image, per_class={k: sum(r["counts"][k] for r in raw_single)
+                                                       for k in classes},
+                       low_thresh=low["obj_thresh"], low_thresh_detections=len(got_low["detections"]),
+                       low_thresh_fallbacks=fallbacks,
+                       paths_bit_equal=True)
+
+            # ---- load: client threads, in processes of their own, stream
+            # raw single frames; a hot reload of the same checkpoint lands
+            # in the middle of the measured window
+            builds0, loaded0 = dict(kernels.BUILDS), dict(kernels._loaded)
+            pred0 = srv.yogo_state["predictor"]
+            profiled = on_card and bsz == max(batches)
+            profile_s = 2.0  # the clients stream on through the profiler's window
+
+            def busy_under_load():  # the device-busy share of a window under the same load
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    with record_function("yogo/serve_load"):
+                        time.sleep(profile_s * 0.8)
+                trace_path = Path(tempfile.gettempdir()) / f"serve_trace_{os.getpid()}.json"
+                prof.export_chrome_trace(str(trace_path))
+                w_ms, b_ms, share, n_ev = busy_share(json.loads(trace_path.read_text()),
+                                                     "yogo/serve_load")
+                trace_path.unlink()
+                return {"window_ms": w_ms, "device_busy_ms": b_ms, "busy_share": share,
+                        "device_events": n_ev}
+
+            load = serve_load.measure(port, frames, want, threads=threads[bsz], seconds=load_s,
+                                      midway=srv.reload_checkpoint,
+                                      after=busy_under_load if profiled else None,
+                                      after_s=profile_s if profiled else 0.0)
+            reload, errors, busy = load.pop("midway"), load.pop("errors"), load.pop("after", None)
+            if not reload["ok"] or srv.yogo_state["predictor"] is pred0:
+                raise AssertionError(f"serve B={bsz}: hot reload failed: {reload}")
+            if dict(kernels.BUILDS) != builds0 or dict(kernels._loaded) != loaded0:
+                raise AssertionError(f"serve B={bsz}: the reload rebuilt or reloaded a kernel")
+            if errors or not load["requests_in_window"]:
+                raise AssertionError(f"serve B={bsz}: {len(errors)} errors under load: {errors[:5]}")
+            rep["load"] = {**load, "errors": 0, "reload": reload, "device_busy_under_load": busy}
+        finally:
+            stop()
+        launches[bsz] = dict(LAUNCHES)
+        rep["stem_launches"] = launches[bsz]
+        if on_card and launches[bsz].get("stem_nhwc", 0) < 1:
+            raise AssertionError(f"serve B={bsz}: the NHWC stem kernel was not launched")
+        out[f"b{bsz}"] = rep
+        log(f"serve B={bsz}: " + json.dumps(rep))
+
+    # ---- overload: a small --max-queue sheds whole batch requests with 503
+    srv, stop = serving(batch_size=8, linger_ms=20.0, max_queue=8, max_frames_per_request=8,
+                        pipeline_depth=1)
+    try:
+        port = srv.server_address[1]
+        body = np.concatenate([frames[i % n] for i in range(8)]).tobytes()
+        statuses, retry_after = [], set()
+        for _ in range(3):
+            results = [None] * 24
+            ths = [threading.Thread(target=lambda i=i: results.__setitem__(
+                i, post(port, body, ctype="application/octet-stream")), daemon=True) for i in range(24)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=150)
+            statuses += [r[0] for r in results if r is not None]
+            retry_after |= {r[1].get("Retry-After") for r in results if r is not None and r[0] == 503}
+            if 503 in statuses:
+                break
+        after = post(port, frames[0].tobytes(), ctype="application/octet-stream")
+        if 503 not in statuses or retry_after != {"1"} or set(statuses) - {200, 503} or after[0] != 200:
+            raise AssertionError(f"overload: statuses {sorted(set(statuses))}, Retry-After "
+                                 f"{retry_after}, then {after[0]}")
+        out["overload"] = {"requests": len(statuses), "shed_503": statuses.count(503),
+                           "answered_200": statuses.count(200),
+                           "shed_frames": srv.yogo_batcher.stats()["shed_frames"]}
+    finally:
+        stop()
+    log("serve overload (--max-queue 8, 8-frame requests): " + json.dumps(out["overload"]))
+    return out, launches
 
 
 def main() -> int:
@@ -895,6 +1116,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
     cases = {
         "golden_b2": torch.from_numpy(imgs4[:2, 0].copy()).to(dev),
+        # the batch shapes of phases 4 and 6 (4 frames) and of phase 8's
+        # B=8 server (phases 5, 7 and 8's B=64 run the timing shape)
+        "golden_b4": torch.from_numpy(imgs4[:, 0].copy()).to(dev),
+        "serve_b8": torch.from_numpy(big[:8, 0].copy()).to(dev),
         "odd_3x70x48": torch.from_numpy(rng.integers(0, 256, (3, 70, 48), np.uint8)).to(dev),
         "timing_b64": torch.from_numpy(big[:, 0].copy()).to(dev),
     }
@@ -1060,7 +1285,18 @@ def main() -> int:
         "decode_path_epoch": report["cli"]["decode_epoch"]["images_per_sec"],
         "resident_batch_step": report["cli"]["step_img_per_s_resident_batch"]}))
 
-    # ------------------------------------------------------------ 8. report
+    # ------------------------------------------------------------- 8. serve
+    torch.cuda.empty_cache()
+    report["serve"], serve_launches = serve_phase(None, imgs4, want_per_image=want_per_image)
+    ceiling = report["timing"]["stages"]["nhwc"]
+    log("serve under load against the count path's images/s (" + smi + "): " + json.dumps({
+        **{f"b{b}": {k: report["serve"][f"b{b}"]["load"][k] for k in (
+            "requests_per_s", "images_per_s", "latency_ms_p50", "latency_ms_p99",
+            "mean_batch_occupancy", "fallbacks", "device_busy_under_load")} for b in serve_launches},
+        "count_path_b64_img_per_s": {src: ceiling[f"count_path_{src}"]["img_per_s"]
+                                     for src in ("host", "device")}}))
+
+    # ------------------------------------------------------------ 9. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -1071,6 +1307,8 @@ def main() -> int:
             "launches": launches[f"stem_{layout}"],
             "launches_train_round_trip": train_launches[f"stem_{layout}"],
             "launches_cli_by_command": cli_stem[f"stem_{layout}"],
+            "launches_serve_by_batch": {f"b{b}": n.get(f"stem_{layout}", 0)
+                                        for b, n in serve_launches.items()},
             "max_abs_err": max_err[layout],
             "ms": timing[layout]["ms"],
             "plain_ms": timing[layout]["plain_ms"],

@@ -38,6 +38,17 @@ GOLDEN_CKPT = "tests/goldens/trained_half_filters.ckpt"
     ("test_parser", ["m.ckpt", "d.yml"]),
     ("test_parser", ["m.ckpt", "d.yml", "--include-mAP", "--include-background", "--dump-to-disk",
                      "--no-fast-eval", "--packed-cache", "dir", "--fast-eval-max-labels", "9"]),
+    ("infer_parser", ["m.ckpt", "--path-to-images", "d"]),
+    ("infer_parser", ["m.pth", "--path-to-zarr", "z", "--draw-boxes", "--save-npy", "--count",
+                      "--output-dir", "o", "--class-names", "a", "b", "--batch-size", "3", "--half",
+                      "--crop-height", "0.25", "--output-img-filetype", ".tif", "--obj-thresh", "0.3",
+                      "--iou-thresh", "0.4", "--min-class-confidence-threshold", "0.2",
+                      "--max-detections", "99", "--fetch-top-k", "0", "--no-use-tqdm"]),
+    ("serve_parser", ["m.ckpt"]),
+    ("serve_parser", ["m.ckpt", "--host", "0.0.0.0", "--port", "0", "--batch-size", "64",
+                      "--linger-ms", "2", "--fetch-top-k", "128", "--pipeline-depth", "3",
+                      "--max-queue", "512", "--max-frames-per-request", "64", "--half",
+                      "--crop-height", "0.5", "--class-names", "a", "b", "--obj-thresh", "0.6"]),
 ])
 def test_parsers_give_the_jax_package_s_namespace(make, argv):
     """Same flag names, types and defaults; only --device differs in
@@ -76,13 +87,19 @@ def test_global_parser_dispatches_three_subcommands_and_infer_keeps_its_flags(ca
     a = p.parse_args(["infer", "m.ckpt", "--path-to-images", "imgs", "--count", "--half"])
     assert (a.task, a.count, a.half, a.batch_size, a.device) == ("infer", True, True, 64, None)
     assert str(p.parse_args(["infer", "m.ckpt", "--path-to-image", "i.png"]).path_to_images) == "i.png"
+    a = p.parse_args(["serve", "m.ckpt", "--half", "--device", "cpu"])
+    assert (a.task, a.half, a.batch_size, a.port, a.device) == ("serve", True, 8, 8765, "cpu")
     for bad in (["export", "m.ckpt"], ["infer", "m.ckpt"], ["infer", "m.ckpt", "--path-to-images", "d",
-                                                            "--batch-size", "0"], ["train", "d", "--epo", "1"]):
+                                                            "--batch-size", "0"], ["train", "d", "--epo", "1"],
+                ["infer", "m.ckpt", "--path-to-images", "d", "--path-to-zarr", "z"],
+                ["serve", "m.ckpt", "--batch-size", "0"]):
         with pytest.raises(SystemExit):
             p.parse_args(bad)
-    with pytest.raises(SystemExit):  # infer without --count is not ported
-        main(["infer", "m.ckpt", "--path-to-images", "d"])
-    assert "only --count is ported" in capsys.readouterr().err
+    # the flags of paths not ported yet parse, and the command raises
+    for argv, item in ((["infer", "m.ckpt", "--path-to-images", "d", "--quantize"], "item 11"),
+                       (["serve", "m.ckpt", "--spatial-parallel", "2"], "item 15")):
+        with pytest.raises(NotImplementedError, match=item):
+            main([*argv, "--device", "cpu"])
 
 
 # ------------------------------------------------------------ train and test
@@ -102,7 +119,7 @@ def test_train_resume_test_and_infer_through_main(tmp_path, fixture_tree, monkey
           "--packed-cache", str(tmp_path / "cache")])
     run = tmp_path / "trained_models" / "cli"
     assert sorted(p.name for p in run.iterdir()) == ["best.ckpt", "config.json", "latest.ckpt",
-                                                     "metrics.jsonl"]
+                                                     "metrics.jsonl", "validation_bbs.png"]
     assert "packed-cache: decoded" in capsys.readouterr().err
     _, _, meta = load_checkpoint(run / "latest.ckpt")
     assert meta["next_epoch"] == 2 and meta["classes"] == CLASSES and meta["model_name"] == "cli"
@@ -134,7 +151,10 @@ def test_without_a_card_and_without_device_cpu_every_subcommand_raises(tmp_path,
     save_checkpoint(tmp_path / "m.ckpt", model, flax_from_state_dict(stack.state_dict()), classes=CLASSES)
     for argv in (["train", str(fixture_tree), "--epochs", "1", "--no-wandb"],
                  ["test", str(tmp_path / "m.ckpt"), str(fixture_tree)],
-                 ["infer", str(tmp_path / "m.ckpt"), "--path-to-images", str(tmp_path), "--count"]):
+                 ["infer", str(tmp_path / "m.ckpt"), "--path-to-images", str(tmp_path), "--count"],
+                 ["infer", str(tmp_path / "m.ckpt"), "--path-to-images", str(tmp_path), "--save-npy",
+                  "--output-dir", str(tmp_path / "o")],
+                 ["serve", str(tmp_path / "m.ckpt"), "--port", "0"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
     assert not (tmp_path / "trained_models").exists()

@@ -98,10 +98,17 @@ def test_cli_count_prints_golden_totals(img_dir, golden):
     assert _counts_line(golden[1]) in r.stdout
 
 
-def test_cli_requires_count(img_dir):
+def test_cli_requires_count(img_dir, tmp_path):
+    """`infer` asks for no --count any more: the artifact paths run too
+    (tests/test_torch_infer_artifacts.py holds them against JAX); here the
+    golden scene's --save-preds files hold the golden detection counts."""
     r = subprocess.run(
         [sys.executable, "-m", "yogo_tpu_torch", "infer", str(CKPT),
-         "--path-to-images", str(img_dir), "--device", "cpu"],
+         "--path-to-images", str(img_dir), "--save-preds", "--output-dir", str(tmp_path / "o"),
+         "--batch-size", "3", "--device", "cpu", "--no-use-tqdm"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
-    assert r.returncode == 2 and "only --count" in r.stderr
+    assert r.returncode == 0, r.stderr
+    g = np.load(GOLDENS / "detections_fullres_base.npz")
+    for i, txt in enumerate(sorted((tmp_path / "o").iterdir())):
+        assert len(txt.read_text().splitlines()) == len(g[f"dets_{i}"]), txt.name

@@ -102,7 +102,12 @@ def test_trainer_end_to_end_tiny(tmp_path):
     result = trainer.train()
     run = tmp_path / "run"
     assert sorted(p.name for p in run.iterdir()) == ["best.ckpt", "config.json", "latest.ckpt",
-                                                     "metrics.jsonl"]
+                                                     "metrics.jsonl", "validation_bbs.png"]
+    # the last validation batch's first image with its boxes, as JAX draws it
+    from PIL import Image
+
+    with Image.open(run / "validation_bbs.png") as im:
+        assert im.mode == "RGBA" and im.size == tuple(cfg["image_hw"][::-1])
     lines = records(run)
     steps = [ln["step"] for ln in lines if "train loss" in ln]
     assert steps == list(range(1, 2 * len(trainer.train_dataloader) + 1))
@@ -191,11 +196,23 @@ def test_trainer_sets_tuning_from_pretrained_and_load_any_refuses_pth(tmp_path):
     assert t.state.scheduler.last_epoch == 0  # this run's own clock
     t2 = cpu_trainer(dict(cfg, model_save_dir=str(tmp_path / "r2")))
     assert t2.tuning is False
-    (tmp_path / "ref.pth").write_bytes(b"PK\x03\x04rest")
-    (tmp_path / "sniffed").write_bytes(b"PK\x03\x04rest")
+    # a reference .pth fine-tunes like the .ckpt it was written from (by
+    # suffix, or sniffed by its zip magic); a broken one is refused
+    from yogo_tpu_torch.utils.checkpoint import load_checkpoint
+    from yogo_tpu_torch.utils.torch_bridge import save_pth
+
+    model, variables, _ = load_checkpoint(tmp_path / "ck.ckpt")
+    save_pth(tmp_path / "ref.pth", model, variables, classes=CLASSES, step=10)
+    (tmp_path / "sniffed").write_bytes((tmp_path / "ref.pth").read_bytes())
     for name in ("ref.pth", "sniffed"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            cpu_trainer(dict(cfg, pretrained_path=str(tmp_path / name)))
+        t3 = cpu_trainer(dict(cfg, pretrained_path=str(tmp_path / name),
+                              model_save_dir=str(tmp_path / f"r_{name}")))
+        assert t3.tuning is True and t3.global_step == 10
+        for k, v in t.state.stack.state_dict().items():
+            assert torch.equal(t3.state.stack.state_dict()[k], v), k
+    (tmp_path / "broken.pth").write_bytes(b"PK\x03\x04rest")
+    with pytest.raises(RuntimeError):
+        cpu_trainer(dict(cfg, pretrained_path=str(tmp_path / "broken.pth")))
 
 
 def test_flush_train_logs_buffers_and_emits_per_step(tmp_path):

@@ -1,4 +1,4 @@
-"""CLI dispatcher: `python -m yogo_tpu_torch {train,test,infer}` (port of
+"""CLI dispatcher: `python -m yogo_tpu_torch {train,test,infer,serve}` (port of
 yogo_tpu/__main__.py; subcommand modules import lazily). Every subcommand
 runs on CUDA and raises without it, unless `--device cpu` is given."""
 
@@ -20,18 +20,13 @@ def main(argv=None) -> None:
 
         do_model_test(args)
     elif args.task == "infer":
-        if not args.count:
-            p.error("infer: only --count is ported so far")
-        from yogo_tpu_torch.infer import predict
+        from yogo_tpu_torch.infer import do_infer
 
-        predict(
-            args.ckpt_path,
-            path_to_images=args.path_to_images,
-            count_predictions=True,
-            batch_size=args.batch_size,
-            half=args.half,
-            device=args.device,
-        )
+        do_infer(args)
+    elif args.task == "serve":
+        from yogo_tpu_torch.serve import do_serve
+
+        do_serve(args)
     else:
         p.print_help()
 

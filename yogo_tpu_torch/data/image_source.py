@@ -1,28 +1,21 @@
-"""Inference image sources: a directory of PNGs or one PNG file (port of
-yogo_tpu/data/image_source.py: ImagePathDataset, center_crop).
+"""Inference image sources: directories of PNGs, single files, or zarr
+stores (port of yogo_tpu/data/image_source.py).
 
-Items are (CHW uint8 numpy, name). PIL is imported by the reader only, so
-machines without it can import this module and feed arrays instead.
+Items are (CHW uint8 numpy, name). PIL is imported by the reader only
+(data/utils.read_image), so machines without it can import this module and
+feed arrays instead; zarr support is gated on the zarr package being
+importable, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 
-
-def read_image(img_path: Union[str, Path], rgb: bool = False) -> np.ndarray:
-    """Decode an image to (C, H, W) uint8 (C=1 grayscale or 3 RGB)."""
-    from PIL import Image
-
-    try:
-        with Image.open(img_path) as im:
-            arr = np.asarray(im.convert("RGB" if rgb else "L"), np.uint8)
-    except OSError as e:
-        raise RuntimeError(f"file {img_path} threw: {e}") from e
-    return arr[None] if arr.ndim == 2 else arr.transpose(2, 0, 1)
+from yogo_tpu_torch.data.utils import read_image
 
 
 class ImagePathDataset:
@@ -63,6 +56,51 @@ class ImagePathDataset:
         return img, path
 
 
+class ZarrDataset:
+    """Images from a zarr array ((H, W, N) stack) or group, with synthesized
+    zero-padded names (reference: yogo/data/image_path_dataset.py:76-126)."""
+
+    def __init__(
+        self,
+        zarr_path: Union[str, Path],
+        image_name_from_idx: Optional[Callable[[int], str]] = None,
+        crop_hw: Optional[Tuple[int, int]] = None,
+        normalize_images: bool = False,
+    ):
+        try:
+            import zarr
+        except ImportError as e:
+            raise ImportError("zarr is not installed; use --path-to-images instead") from e
+
+        self.zarr_path = Path(zarr_path)
+        if not self.zarr_path.exists():
+            raise FileNotFoundError(f"{self.zarr_path} does not exist")
+        self.store = zarr.open(str(self.zarr_path), mode="r")
+        self._is_array = isinstance(self.store, zarr.Array)
+        self.image_name_from_idx = image_name_from_idx or self._default_name
+        self.crop_hw = crop_hw
+        self.normalize_images = normalize_images
+        self._N = int(math.log(max(len(self), 1), 10) + 1)
+
+    def _default_name(self, idx: int) -> str:
+        return f"img_{idx:0{self._N}}.png"
+
+    def __len__(self) -> int:
+        if self._is_array:
+            return self.store.initialized
+        return len(self.store)
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, str]:
+        if self._is_array:
+            img = np.asarray(self.store[:, :, idx])[None]
+        else:
+            img = np.asarray(self.store[idx][:])[None]
+        img = center_crop(img, self.crop_hw)
+        if self.normalize_images:
+            img = img.astype(np.float32) / 255.0
+        return img, self.image_name_from_idx(idx)
+
+
 def center_crop(
     img_chw: np.ndarray, crop_hw: Optional[Tuple[int, int]]
 ) -> np.ndarray:
@@ -83,3 +121,32 @@ def center_crop(
     top = int(round((h - th) / 2.0))
     left = int(round((w - tw) / 2.0))
     return img_chw[:, top : top + th, left : left + tw]
+
+
+def get_dataset(
+    path_to_images: Optional[Union[str, Path]] = None,
+    path_to_zarr: Optional[Union[str, Path]] = None,
+    crop_hw: Optional[Tuple[int, int]] = None,
+    normalize_images: bool = False,
+    rgb: bool = False,
+) -> Union[ImagePathDataset, ZarrDataset]:
+    """One of two sources, exclusively
+    (reference: yogo/data/image_path_dataset.py:136-159)."""
+    if path_to_images is not None and path_to_zarr is not None:
+        raise ValueError(
+            "can only take one of 'path_to_images' or 'path_to_zarr', but got both"
+        )
+    if path_to_images is not None:
+        return ImagePathDataset(
+            path_to_images, crop_hw=crop_hw, normalize_images=normalize_images, rgb=rgb
+        )
+    if path_to_zarr is not None:
+        if rgb:
+            # zarr stacks are (H, W, N) single-channel: a 3-channel model
+            # would only fail later as a conv channel mismatch
+            raise ValueError(
+                "zarr sources are single-channel; an RGB checkpoint cannot "
+                "be used with --path-to-zarr"
+            )
+        return ZarrDataset(path_to_zarr, crop_hw=crop_hw, normalize_images=normalize_images)
+    raise ValueError("one of 'path_to_images' or 'path_to_zarr' must not be None")

@@ -1,43 +1,83 @@
 """Inference driver: `python -m yogo_tpu_torch infer` and predict()
-(port of yogo_tpu/infer.py:87-650, single device).
+(port of yogo_tpu/infer.py, one device).
 
   - fixed-shape batches: the ragged last batch is padded by repeating its
-    first image and the padding is masked out of the counts;
-  - `--count` runs selection-first on the device: forward to the undecoded
-    head, then filter -> top-K -> survivor decode -> NMS -> count, and only
-    the (C,) counts come back;
-  - return_full_predictions runs the decoded forward and the host formatter;
+    first image, and the padding is masked out;
+  - `--count` alone runs selection-first on the device: forward to the
+    undecoded head, then filter -> top-K -> survivor decode -> NMS -> count,
+    and only the (C,) counts come back;
+  - the artifact paths (`--save-preds`, `--save-npy`, `--draw-boxes`, and
+    the host count that rides with them) fetch the top `fetch_top_k` cells
+    by objectness of each image and run the host formatter on them; an image
+    whose K-th candidate passes the lowest consumer threshold fetches its
+    full decoded slice instead, so the artifacts are those of the full
+    tensor, bit for bit; `fetch_top_k=0` and return_full_predictions fetch
+    the full decoded tensor;
   - a one-thread prefetcher decodes the next batch while this one computes.
 
-The per-batch work lives in `Predictor`, which other drivers (chip_smoke.py)
-call directly with arrays.
+Output artifacts keep the reference schemas: YOLO-format txt prediction
+files, the scope (8+C, N) .npy array with its JSON sidecar, drawn images and
+per-class counts. The per-batch work lives in `Predictor`, which other
+callers (serve.py, chip_smoke.py) call directly with arrays.
 """
 
 from __future__ import annotations
 
+import datetime
+import json
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional, Union
+from typing import List, Literal, Optional, Union
 
 import numpy as np
 import torch
 
-from yogo_tpu_torch.data.image_source import ImagePathDataset
+from yogo_tpu_torch.data.image_source import get_dataset
+from yogo_tpu_torch.data.loader import choose_dataloader_num_workers
 from yogo_tpu_torch.models.yogo import YOGO, ConvStack, resolve_device
 from yogo_tpu_torch.ops.postprocess import (
     INFER_COUNT_MAX_DETECTIONS,
+    count_cells_for_formatted_preds,
     count_class_predictions_raw,
+    decode_raw_slice,
     format_preds,
+    format_to_numpy,
+    scatter_candidates,
+    select_top_candidates_raw,
 )
-from yogo_tpu_torch.utils.checkpoint import load_checkpoint
+from yogo_tpu_torch.utils.checkpoint import load_any
 from yogo_tpu_torch.utils.weights import state_dict_from_flax
+
+
+def load_model(
+    path_to_ckpt: Union[str, Path],
+    *,
+    half: bool = False,
+    device=None,
+    channels_last: bool = True,
+    vertical_crop_height: Optional[float] = None,
+):
+    """A .ckpt or .pth -> (model config, ConvStack on `device` (default
+    CUDA) in eval mode, meta). `half` computes in bf16, which runs block 0
+    as the fused stem kernel on uint8 input; `vertical_crop_height` resizes
+    the model's grid to round(fraction * height) rows (the fully
+    convolutional crop of yogo/model.py:236-265)."""
+    model, variables, meta = load_any(path_to_ckpt)
+    if half:
+        model = model.with_compute_dtype(torch.bfloat16)
+    if vertical_crop_height:
+        model = model.resize(int(round(vertical_crop_height * model.img_size[0])))
+    stack = model.module(device, channels_last=channels_last)
+    stack.load_state_dict(state_dict_from_flax(variables), strict=True)
+    return model, stack, meta
 
 
 class Predictor:
     """A loaded model on one device and the per-batch steps of predict():
     `forward_raw` (uint8 batch -> NHWC head), `count` (head + image mask ->
-    per-class counts on the device) and `forward` (decoded predictions)."""
+    per-class counts on the device), `forward` (decoded predictions) and
+    the candidate fetch (`candidates`, `decode_slice`)."""
 
     def __init__(
         self,
@@ -67,15 +107,14 @@ class Predictor:
         half: bool = False,
         device=None,
         channels_last: bool = True,
+        vertical_crop_height: Optional[float] = None,
         **thresholds,
     ) -> "Predictor":
-        """Load a .ckpt onto `device` (default CUDA); `half` computes in
-        bf16, which runs block 0 as the fused stem kernel."""
-        model, variables, meta = load_checkpoint(path_to_ckpt)
-        if half:
-            model = model.with_compute_dtype(torch.bfloat16)
-        stack = model.module(device, channels_last=channels_last)
-        stack.load_state_dict(state_dict_from_flax(variables), strict=True)
+        """Load a .ckpt or .pth onto `device` (default CUDA), as load_model."""
+        model, stack, meta = load_model(
+            path_to_ckpt, half=half, device=device, channels_last=channels_last,
+            vertical_crop_height=vertical_crop_height,
+        )
         return cls(model, stack, meta=meta, **thresholds)
 
     def to_device(self, imgs) -> torch.Tensor:
@@ -111,15 +150,42 @@ class Predictor:
             image_mask=image_mask,
         )
 
+    def candidates(self, raw: torch.Tensor, k: int):
+        """Head -> the top-k cells of each image by objectness, decoded:
+        (rows (B, k, 5+C) f32, flat cell indices (B, k)), on the device."""
+        m = self.model
+        return select_top_candidates_raw(
+            raw, k, m.anchor_w, m.anchor_h,
+            width_multiplier=m.width_multiplier, height_multiplier=m.height_multiplier,
+        )
 
-def host_class_counts(
+    def decode_slice(self, raw: torch.Tensor, slot) -> torch.Tensor:
+        """Head -> image `slot`'s decoded (5+C, Sy, Sx) grid, on the device."""
+        m = self.model
+        return decode_raw_slice(
+            raw, slot, m.anchor_w, m.anchor_h,
+            width_multiplier=m.width_multiplier, height_multiplier=m.height_multiplier,
+        )
+
+
+def save_predictions(fnames, batch_preds, obj_thresh=0.5, iou_thresh=0.5):
+    """Write YOLO-format txt per image: 'class cx cy w h' rows
+    (reference: yogo/infer.py:39-57)."""
+    for fname, pred in zip(fnames, batch_preds):
+        rows = format_preds(np.asarray(pred), obj_thresh=obj_thresh, iou_thresh=iou_thresh)
+        lines = [f"{int(np.argmax(r[5:]))} {r[0]} {r[1]} {r[2]} {r[3]}" for r in rows]
+        Path(fname).write_text("\n".join(lines))
+
+
+def get_prediction_class_counts(
     batch_preds: np.ndarray,
     obj_thresh: float = 0.5,
     iou_thresh: float = 0.5,
     min_class_confidence_threshold: float = 0.0,
 ) -> np.ndarray:
-    """Per-class counts of decoded (N, 5+C, Sy, Sx) predictions via the
-    host formatter (reference: yogo/infer.py:60-87)."""
+    """Per-class counts of decoded (N, 5+C, Sy, Sx) predictions through the
+    host formatter (reference: yogo/infer.py:60-87); the device path is
+    Predictor.count."""
     total = np.zeros(batch_preds.shape[1] - 5, np.int64)
     for pred in batch_preds:
         rows = format_preds(
@@ -129,90 +195,296 @@ def host_class_counts(
             min_class_confidence_threshold=min_class_confidence_threshold,
         )
         if len(rows):
-            np.add.at(total, rows[:, 5:].argmax(axis=1), 1)
+            total += count_cells_for_formatted_preds(rows[:, 5:])
     return total
+
+
+def write_metadata(metadata_path: Path, **kwargs) -> None:
+    with open(Path(metadata_path).with_suffix(".json"), "w") as f:
+        json.dump(kwargs, f, indent=4)
 
 
 def predict(
     path_to_ckpt: Union[str, Path],
     *,
-    path_to_images: Union[str, Path],
+    path_to_images: Optional[Path] = None,
+    path_to_zarr: Optional[Path] = None,
+    output_dir: Optional[str] = None,
+    draw_boxes: bool = False,
+    save_preds: bool = False,
+    save_npy: bool = False,
+    class_names: Optional[List[str]] = None,
     count_predictions: bool = False,
-    return_full_predictions: bool = False,
     batch_size: int = 64,
-    half: bool = False,
     obj_thresh: float = 0.5,
     iou_thresh: float = 0.5,
+    vertical_crop_height: Optional[float] = None,
+    use_tqdm: bool = False,
+    output_img_ftype: Literal[".png", ".tif", ".tiff"] = ".png",
+    requested_num_workers: Optional[int] = None,
     min_class_confidence_threshold: float = 0.0,
+    half: bool = False,
+    quantize: bool = False,
+    return_full_predictions: bool = False,
     max_detections: int = INFER_COUNT_MAX_DETECTIONS,
+    data_parallel: bool = False,
+    spatial_parallel: int = 1,
+    fetch_top_k: int = 512,
     device=None,
 ) -> Optional[np.ndarray]:
-    """Mirrors yogo_tpu.infer.predict for --count and full predictions on
-    one device (default CUDA; device="cpu" runs on the CPU). Prints the
-    per-class counts with count_predictions; returns (N, 5+C, Sy, Sx) f32
-    with return_full_predictions."""
+    """Mirrors yogo_tpu.infer.predict on one device (default CUDA;
+    device="cpu" runs on the CPU). Prints the per-class counts with
+    count_predictions, writes the artifacts asked for, and returns
+    (N, 5+C, Sy, Sx) f32 with return_full_predictions. `quantize` waits for
+    the int8 port (ROADMAP.md Queue 1 item 11) and `data_parallel` /
+    `spatial_parallel` for the parallelism port (item 15): both raise."""
+    if quantize:
+        raise NotImplementedError(
+            "--quantize is not ported yet: int8 inference needs an s8 x s8 -> "
+            "s32 conv for Hopper (ROADMAP.md Queue 1 item 11)"
+        )
+    if data_parallel or spatial_parallel > 1:
+        raise NotImplementedError(
+            "--data-parallel / --spatial-parallel are not ported yet "
+            "(ROADMAP.md Queue 1 item 15); the port infers on one device"
+        )
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if save_preds and draw_boxes:
+        raise ValueError(
+            "cannot save predictions in YOGO format and draw_boxes at the same time"
+        )
+    elif output_dir is not None and not (save_preds or draw_boxes or save_npy):
+        warnings.warn(
+            f"output dir is not None (is {output_dir}), but it will not be "
+            "used since save_preds and draw_boxes are both false"
+        )
+    elif output_dir is not None:
+        Path(output_dir).mkdir(exist_ok=True, parents=False)
+    elif save_preds:
+        raise ValueError("output_dir must not be None if save_preds is True")
+    if output_img_ftype not in (".png", ".tif", ".tiff"):
+        raise ValueError(
+            "only .png, .tif, and .tiff are supported for output img "
+            f"filetype; got {output_img_ftype}"
+        )
+
     device = resolve_device(device)
-    thresholds = dict(
-        obj_thresh=obj_thresh,
-        iou_thresh=iou_thresh,
+    pred = Predictor.from_checkpoint(
+        path_to_ckpt, half=half, device=device, vertical_crop_height=vertical_crop_height,
+        obj_thresh=obj_thresh, iou_thresh=iou_thresh,
         min_class_confidence_threshold=min_class_confidence_threshold,
         max_detections=max_detections,
     )
-    pred = Predictor.from_checkpoint(path_to_ckpt, half=half, device=device, **thresholds)
-    model = pred.model
+    model, meta = pred.model, pred.meta
+    img_h, img_w = model.img_size
+    crop_hw = (img_h, img_w) if vertical_crop_height else None
     num_classes = model.num_classes
-    class_names = pred.meta.get("class_names") or pred.meta.get("classes")
     if class_names is not None and len(class_names) != num_classes:
-        warnings.warn(
-            f"checkpoint lists {len(class_names)} class names but the "
-            f"model has {num_classes} classes; falling back to indices"
-        )
-        class_names = None
+        raise ValueError(f"expected {num_classes} class names, got {len(class_names)}")
+    if class_names is None:
+        class_names = meta.get("class_names") or meta.get("classes")
+        if class_names is not None and len(class_names) != num_classes:
+            # stale metadata: zipping short names with the counts would
+            # silently drop classes from the --count output
+            warnings.warn(
+                f"checkpoint lists {len(class_names)} class names but the "
+                f"model has {num_classes} classes; falling back to indices"
+            )
+            class_names = None
 
-    dataset = ImagePathDataset(
-        path_to_images,
+    dataset = get_dataset(
+        path_to_images=path_to_images,
+        path_to_zarr=path_to_zarr,
+        crop_hw=crop_hw,
         normalize_images=bool(model.normalize_images),
         rgb=bool(model.is_rgb),
     )
     n_images = len(dataset)
+    num_workers = choose_dataloader_num_workers(n_images, requested_num_workers=requested_num_workers)
+
     sx, sy = model.grid
+    pred_dim = 5 + num_classes
+    needs_full = return_full_predictions or save_npy or save_preds or draw_boxes
+    # every host consumer filters at an objectness threshold, so an image's
+    # top-K candidates hold all it needs when the K-th candidate's
+    # objectness is <= the LOWEST of them; others fetch their full slice
+    consumer_threshes = []
+    if draw_boxes or save_preds or count_predictions:
+        consumer_threshes.append(obj_thresh)
+    if save_npy:
+        # format_to_numpy filters at format_preds' DEFAULT thresholds
+        # (reference: yogo/utils/prediction_formatting.py:130-134)
+        consumer_threshes.append(0.5)
+    use_candidates = needs_full and not return_full_predictions and 0 < fetch_top_k < sx * sy
+    thresh_floor = min(consumer_threshes, default=obj_thresh)
+    n_full_fallbacks = 0
+
     results = (
-        np.zeros((n_images, 5 + num_classes, sy, sx), np.float32)
-        if return_full_predictions
-        else None
+        np.zeros((n_images, pred_dim, sy, sx), np.float32) if return_full_predictions else None
     )
+    np_results: List[np.ndarray] = []
     tot_counts = torch.zeros(num_classes, dtype=torch.int64, device=device)
     host_counts = np.zeros(num_classes, np.int64)
 
+    decode_pool = ThreadPoolExecutor(max_workers=num_workers) if num_workers > 0 else None
+
     def load_batch(start: int):
-        items = [dataset[i] for i in range(start, min(start + batch_size, n_images))]
+        idxs = range(start, min(start + batch_size, n_images))
+        if decode_pool is not None:
+            items = list(decode_pool.map(dataset.__getitem__, idxs))
+        else:
+            items = [dataset[i] for i in idxs]
         imgs = np.stack([im for im, _ in items])
         real = len(items)
         if real < batch_size:  # pad to the fixed batch shape
             imgs = np.concatenate([imgs, np.repeat(imgs[:1], batch_size - real, axis=0)])
-        return imgs, real
+        return imgs, [name for _, name in items], real
+
+    pbar = None
+    if use_tqdm:
+        try:
+            from tqdm import tqdm
+
+            pbar = tqdm(unit="images", total=n_images)
+        except ImportError:
+            pass
 
     starts = list(range(0, n_images, batch_size))
-    with ThreadPoolExecutor(max_workers=1) as prefetcher:
-        pending = prefetcher.submit(load_batch, starts[0])
+    prefetcher = ThreadPoolExecutor(max_workers=1)
+    try:
+        pending = prefetcher.submit(load_batch, starts[0]) if starts else None
         for bi, start in enumerate(starts):
-            imgs, real = pending.result()
-            if bi + 1 < len(starts):
-                pending = prefetcher.submit(load_batch, starts[bi + 1])
-            if return_full_predictions:
-                res = pred.forward(imgs).cpu().numpy()[:real]
-                results[start : start + real] = res
-                if count_predictions:
-                    host_counts += host_class_counts(
-                        res, obj_thresh, iou_thresh, min_class_confidence_threshold
-                    )
-            elif count_predictions:
+            # a malformed image skips its batch with a warning, as the
+            # reference's loop does (reference: yogo/infer.py:299-309)
+            try:
+                imgs, names, real = pending.result()
+            except Exception as e:
+                warnings.warn(f"got error {e}; continuing")
+                imgs = None
+            pending = prefetcher.submit(load_batch, starts[bi + 1]) if bi + 1 < len(starts) else None
+            if imgs is None:
+                continue
+
+            if count_predictions and not needs_full:
                 mask = torch.arange(batch_size) < real
                 tot_counts += pred.count(pred.forward_raw(imgs), mask)
+                if pbar:
+                    pbar.update(real)
+                continue
+
+            if use_candidates:
+                raw = pred.forward_raw(imgs)
+                rows, idx = pred.candidates(raw, fetch_top_k)
+                rows_np, idx_np = rows.cpu().numpy(), idx.cpu().numpy()
+                res = np.empty((real, pred_dim, sy, sx), np.float32)
+                for j in range(real):
+                    if float(rows_np[j, -1, 4]) > thresh_floor:
+                        n_full_fallbacks += 1
+                        res[j] = pred.decode_slice(raw, j).cpu().numpy()
+                    else:
+                        res[j] = scatter_candidates(rows_np[j], idx_np[j], pred_dim, sy, sx)
+                del raw, rows, idx
+            else:
+                res = pred.forward(imgs).cpu().numpy()[:real]
+
+            if draw_boxes:
+                from yogo_tpu_torch.utils.drawing import draw_yogo_prediction
+
+                for j in range(real):
+                    bbox_img = draw_yogo_prediction(
+                        img=imgs[j],
+                        prediction=res[j],
+                        obj_thresh=obj_thresh,
+                        iou_thresh=iou_thresh,
+                        min_class_confidence_threshold=min_class_confidence_threshold,
+                        labels=class_names,
+                        images_are_normalized=bool(model.normalize_images),
+                    )
+                    if output_dir is not None:
+                        bbox_img.save(Path(output_dir) / Path(names[j]).with_suffix(output_img_ftype).name)
+                    else:
+                        bbox_img.show()
+            if save_preds:
+                out_fnames = [Path(output_dir) / Path(n).with_suffix(".txt").name for n in names]
+                save_predictions(out_fnames, res, obj_thresh=obj_thresh, iou_thresh=iou_thresh)
+            if save_npy:
+                for j in range(real):
+                    np_results.append(format_to_numpy(start + j, res[j], int(img_h), int(img_w)))
+            if count_predictions:
+                host_counts += get_prediction_class_counts(
+                    res,
+                    obj_thresh=obj_thresh,
+                    iou_thresh=iou_thresh,
+                    min_class_confidence_threshold=min_class_confidence_threshold,
+                )
+            if return_full_predictions:
+                results[start : start + real] = res
+            if pbar:
+                pbar.update(real)
+    finally:
+        prefetcher.shutdown(wait=False)
+        if decode_pool is not None:
+            decode_pool.shutdown(wait=False)
+        if pbar:
+            pbar.close()
+
+    if use_candidates and n_images and n_full_fallbacks > 0.1 * n_images:
+        # exact all the same: a fallback costs only the full-slice fetch
+        warnings.warn(
+            f"{n_full_fallbacks}/{n_images} images exceeded the "
+            f"--fetch-top-k {fetch_top_k} candidate capacity and fell back "
+            "to full-tensor fetches (exact but slow); raise --fetch-top-k "
+            "to cover your detection density"
+        )
 
     if count_predictions:
-        counts = host_counts if return_full_predictions else tot_counts.cpu().numpy()
+        counts = host_counts if needs_full else tot_counts.cpu().numpy()
         print(list(zip(class_names or range(num_classes), map(int, counts))))
+
+    if save_npy and np_results:
+        if path_to_images:
+            filename = Path(path_to_images).resolve().parent.stem
+        else:
+            filename = Path(path_to_zarr).resolve().stem
+        base = Path(output_dir).resolve() if output_dir else Path.cwd().resolve()
+        fp = base / f"{filename}.npy"
+        np.save(fp, np.hstack(np_results))
+        write_metadata(
+            fp.with_suffix(".json"),
+            run_name=fp.with_suffix("").name,
+            model_name=meta.get("model_name"),
+            obj_thresh=obj_thresh,
+            iou_thresh=iou_thresh,
+            vertical_crop_height_px=int(img_h),
+            write_date=datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S"),
+        )
     return results
+
+
+def do_infer(args) -> None:
+    predict(
+        args.ckpt_path,
+        path_to_images=args.path_to_images,
+        path_to_zarr=args.path_to_zarr,
+        output_dir=args.output_dir,
+        draw_boxes=args.draw_boxes,
+        save_preds=args.save_preds,
+        save_npy=args.save_npy,
+        class_names=args.class_names,
+        obj_thresh=args.obj_thresh,
+        iou_thresh=args.iou_thresh,
+        batch_size=args.batch_size,
+        use_tqdm=args.use_tqdm,
+        vertical_crop_height=args.crop_height,
+        count_predictions=args.count,
+        output_img_ftype=args.output_img_filetype,
+        min_class_confidence_threshold=args.min_class_confidence_threshold,
+        half=args.half,
+        quantize=args.quantize,
+        max_detections=args.max_detections,
+        data_parallel=args.data_parallel,
+        spatial_parallel=args.spatial_parallel,
+        fetch_top_k=args.fetch_top_k,
+        device=args.device,
+    )

@@ -19,6 +19,7 @@ import re
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -49,6 +50,9 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register / shared-memory report) of this process's
 # builds, by source
 build_logs: Dict[str, str] = {}
+# nvcc runs started by this process, by source: a library is built once
+# and loaded once, whatever reloads a caller does
+BUILDS: Counter = Counter()
 
 
 def find_nvcc() -> str:
@@ -101,6 +105,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> None:
         for n in todo:
             tmp = _lib_path(n).with_suffix(f".tmp{os.getpid()}.so")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
+            BUILDS[n] += 1
             procs[n] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ))

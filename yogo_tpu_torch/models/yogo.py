@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Iterable, Optional, Tuple
 
@@ -223,8 +224,41 @@ def decode_predictions(
     raw: (B, Sy, Sx, 5+C) NHWC head output. Returns (B, Sy, Sx, 5+C) f32:
     [xc, yc, w, h, objectness, *classes]; classes stay logits unless
     `inference`, then softmax."""
+    return decode_rows(
+        raw, cxs, cys, raw.shape[2], raw.shape[1], anchor_w, anchor_h,
+        width_multiplier, height_multiplier, inference,
+    )
+
+
+@functools.lru_cache(maxsize=32)
+def cell_offset_tensors(sx: int, sy: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (Sy, Sx) cell_offsets tables as f32 tensors on `device`, made
+    once per grid and device: copying them from pageable host memory at
+    every decode would make the host wait for all the work queued before
+    it on the device (a pageable upload synchronizes its stream), which
+    stops a dispatch from running ahead of the one before. Made outside
+    inference mode, so a training forward may use them too."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t).to(device) for t in cell_offsets(sx, sy))
+
+
+def decode_rows(
+    raw: torch.Tensor,
+    cxs: torch.Tensor,
+    cys: torch.Tensor,
+    sx: int,
+    sy: int,
+    anchor_w: float,
+    anchor_h: float,
+    width_multiplier: float = 1.0,
+    height_multiplier: float = 1.0,
+    inference: bool = False,
+) -> torch.Tensor:
+    """The decode of decode_predictions on rows of any leading shape:
+    raw (..., 5+C) with its cells' offsets cxs / cys shaped like raw[..., 0],
+    on a grid of sx by sy cells. The candidate paths decode the rows they
+    select with it, so their values are the full decode's, bit for bit."""
     raw = raw.float()
-    sy, sx = raw.shape[1], raw.shape[2]
     tx, ty, tw, th, to = (raw[..., i] for i in range(5))
     cls = raw[..., 5:]
     xc = torch.sigmoid(tx) * (1.0 / sx) + cxs
@@ -444,7 +478,7 @@ class YOGO:
     def _decode_raw(self, raw: torch.Tensor, inference: bool) -> torch.Tensor:
         """NHWC head logits -> decoded (B, 5+C, Sy, Sx) predictions."""
         sx, sy = self.grid
-        cxs, cys = (torch.from_numpy(a).to(raw.device) for a in cell_offsets(sx, sy))
+        cxs, cys = cell_offset_tensors(sx, sy, raw.device)
         out = decode_predictions(
             raw, cxs, cys, self.anchor_w, self.anchor_h,
             self.width_multiplier, self.height_multiplier, inference=inference,

@@ -8,10 +8,14 @@ yogo_tpu/ops/postprocess.py).
     count over the UNDECODED NHWC head, the `infer --count` hot path;
     `format_preds_batched` / `count_class_predictions` do the same over
     DECODED predictions, for the device metrics;
+  * candidate paths of `serve` and `infer --fetch-top-k`
+    (`select_top_candidates{,_raw}`, `decode_raw_slice`,
+    `scatter_candidates`): the top-K cells by objectness come to the host,
+    and the host formatter runs on them as on the full grid;
+  * host exports and counts (`format_to_numpy`,
+    `count_cells_for_formatted_preds`), numpy;
   * matching for the host metrics (`PredictionLabelMatch`,
     `match_preds_and_labels`, `format_preds_and_labels_v2`), numpy.
-
-The candidate path of `infer --fetch-top-k` is not ported yet.
 
 Thresholds follow the reference exactly: objectness strictly > obj_thresh,
 NMS at iou_thresh with score = max(class_probs) * objectness (0 disables),
@@ -26,6 +30,7 @@ from typing import Dict, List, Literal, Optional
 import numpy as np
 import torch
 
+from yogo_tpu_torch.models.yogo import cell_offset_tensors, decode_rows
 from yogo_tpu_torch.ops.grid import WH_CLAMP
 from yogo_tpu_torch.ops.nms import batched_nms, nms_numpy
 
@@ -279,6 +284,149 @@ def count_class_predictions(
             min_class_confidence_threshold=min_class_confidence_threshold,
             max_detections=max_detections,
             image_mask=image_mask,
+        )
+    )
+
+
+def select_top_candidates(out: torch.Tensor, k: int):
+    """(B, 5+C, Sy, Sx) decoded predictions -> the top-k cells by
+    objectness as (rows (B, k, 5+C), flat cell indices (B, k)), in
+    descending objectness.
+
+    Fetching these instead of the full tensor stays exact: a cell outside
+    the top-k has objectness <= the k-th candidate's (`rows[:, -1, 4]`), so
+    whenever that value <= a consumer's obj_thresh the candidates hold
+    every passing cell. torch.topk keeps the same set and k-th value as the
+    JAX package's approx_max_k(recall_target=1.0); only the order of tied
+    keys may differ, and scatter_candidates restores cell order.
+
+    No path of the port calls it: `infer` and `serve` select from the raw
+    head (select_top_candidates_raw). It is the JAX package's public
+    function over a decoded tensor, kept for such callers and held against
+    it in the tests."""
+    flat = out.reshape(out.shape[0], out.shape[1], -1)  # (B, D, S)
+    _, idx = torch.topk(flat[:, 4, :].float(), k, dim=1, sorted=True)
+    rows = torch.gather(flat, 2, idx[:, None, :].expand(-1, flat.shape[1], -1))
+    return rows.transpose(1, 2), idx
+
+
+def select_top_candidates_raw(
+    raw: torch.Tensor,
+    k: int,
+    anchor_w: float,
+    anchor_h: float,
+    width_multiplier: float = 1.0,
+    height_multiplier: float = 1.0,
+):
+    """select_top_candidates over the UNDECODED NHWC head (B, Sy, Sx, 5+C)
+    of YOGO.apply(..., decode=False): top-k on the f32 sigmoid objectness,
+    gather of the raw rows, then the inference decode (f32, class softmax)
+    of the k survivors only, with their cell offsets gathered from the
+    cell_offsets tables - the values the full decode gives those cells, bit
+    for bit (i/Sx would be 1 ulp off). Returns (rows (B, k, 5+C) f32, flat
+    cell indices (B, k)), with the same completeness proof via
+    rows[:, -1, 4]."""
+    b, sy, sx, pred_dim = raw.shape
+    flat = raw.reshape(b, sy * sx, pred_dim)
+    obj = torch.sigmoid(flat[..., 4].float())
+    _, idx = torch.topk(obj, k, dim=1, sorted=True)
+    sel = torch.gather(flat, 1, idx[..., None].expand(-1, -1, pred_dim))
+    cxs, cys = (t.reshape(-1)[idx] for t in cell_offset_tensors(sx, sy, raw.device))
+    rows = decode_rows(sel, cxs, cys, sx, sy, anchor_w, anchor_h,
+                       width_multiplier, height_multiplier, inference=True)
+    return rows, idx
+
+
+def decode_raw_slice(
+    raw: torch.Tensor,
+    slot,
+    anchor_w: float,
+    anchor_h: float,
+    width_multiplier: float = 1.0,
+    height_multiplier: float = 1.0,
+) -> torch.Tensor:
+    """One image's decoded (5+C, Sy, Sx) inference grid from the batched
+    NHWC raw head: the candidate paths' full-fetch fallback, for when a
+    consumer's threshold undercuts the k-th candidate. `slot` is an int or
+    a 0-d tensor."""
+    one = raw[int(slot)]
+    sy, sx, _ = one.shape
+    cxs, cys = cell_offset_tensors(sx, sy, raw.device)
+    out = decode_rows(one, cxs, cys, sx, sy, anchor_w, anchor_h,
+                      width_multiplier, height_multiplier, inference=True)
+    return out.permute(2, 0, 1)
+
+
+def scatter_candidates(
+    cand_rows: np.ndarray, cand_idx: np.ndarray, pred_dim: int,
+    sy: int, sx: int,
+) -> np.ndarray:
+    """Top-k candidate rows + flat cell indices -> a (pred_dim, Sy, Sx)
+    grid equal to the full one for any objectness threshold the candidates
+    are complete for: other cells become zero rows (objectness 0), which
+    the host formatter drops like the sub-threshold cells they stand for,
+    and candidates land at their own cells, so cell-order NMS tie-breaks
+    hold (copy of the JAX package's)."""
+    flat = np.zeros((sy * sx, pred_dim), np.float32)
+    flat[np.asarray(cand_idx)] = cand_rows
+    return flat.T.reshape(pred_dim, sy, sx)
+
+
+def count_cells_for_formatted_preds(
+    formatted_class_predictions: np.ndarray,
+    min_confidence_threshold: Optional[float] = None,
+) -> np.ndarray:
+    """Host per-class counter over (N, C) class-prob rows (reference:
+    yogo/infer.py:90-124): argmax, filter max prob strictly > threshold,
+    histogram."""
+    p = np.asarray(formatted_class_predictions)
+    if p.ndim != 2:
+        raise ValueError(
+            "expected formatted_class_predictions of shape (N, num_classes); "
+            f"got {p.shape}"
+        )
+    if min_confidence_threshold is not None and not (
+        0 <= min_confidence_threshold <= 1
+    ):
+        raise ValueError(
+            "min_confidence_threshold should be between 0 and 1; "
+            f"is {min_confidence_threshold}"
+        )
+    thresh = min_confidence_threshold or 0.0
+    n_classes = p.shape[1]
+    if len(p) == 0:
+        return np.zeros(n_classes, np.int64)
+    kept = p.argmax(axis=1)[p.max(axis=1) > thresh]
+    return np.bincount(kept, minlength=n_classes).astype(np.int64)
+
+
+def format_to_numpy(
+    img_id: int,
+    prediction_tensor: np.ndarray,
+    img_h: int,
+    img_w: int,
+    np_dtype=np.float32,
+) -> np.ndarray:
+    """Scope .npy export schema (reference:
+    yogo/utils/prediction_formatting.py:96-156): (8+C, N) rows =
+    [img_id, tlx*w, tly*h, brx*w, bry*h, objectness, argmax label,
+    peak prob, *class probs], filtered at format_preds' default
+    thresholds."""
+    filtered = format_preds(prediction_tensor, box_format="xyxy").T  # (5+C, N)
+    n = filtered.shape[1]
+    all_confs = filtered[5:].astype(np_dtype)
+    pred_labels = np.argmax(all_confs, axis=0).astype(np.uint8)
+    return np.vstack(
+        (
+            np.full(n, img_id, dtype=np_dtype),
+            (filtered[0] * img_w).astype(np_dtype),
+            (filtered[1] * img_h).astype(np_dtype),
+            (filtered[2] * img_w).astype(np_dtype),
+            (filtered[3] * img_h).astype(np_dtype),
+            filtered[4].astype(np_dtype),
+            pred_labels.astype(np_dtype),
+            all_confs[pred_labels, np.arange(n)].astype(np_dtype),
+            all_confs,
         )
     )
 

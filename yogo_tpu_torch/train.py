@@ -752,21 +752,29 @@ class Trainer:
         if self.validate_dataloader is None:
             return
         losses = []  # device scalars: fetched ONCE after the loop
+        last_batch = None
         for imgs, labels, mask in prefetch_to_device(self.validate_dataloader, self.device):
-            loss, _ = self._eval_step(self.state.stack, imgs, labels, mask)
+            loss, preds = self._eval_step(self.state.stack, imgs, labels, mask)
             losses.append(loss)
+            last_batch = (imgs, preds)
         if not losses:
             return
         mean_val_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
 
         log: Dict[str, Any] = {"val loss": mean_val_loss}
-        # the JAX package draws the last validation image's boxes here, best
-        # effort; the drawing helpers are not ported yet (python shows the
-        # warning once)
-        warnings.warn(
-            "validation_bbs.png is not written: utils/drawing.py is not "
-            "ported yet (ROADMAP.md Queue 1 item 16)"
-        )
+        try:  # the last batch's first image with its boxes, best effort
+            from yogo_tpu_torch.utils.drawing import draw_yogo_prediction
+
+            img = draw_yogo_prediction(
+                last_batch[0][0].cpu().numpy(),
+                last_batch[1][0].float().cpu().numpy(),
+                labels=self.config["class_names"],
+                images_are_normalized=self.config.get("normalize_images", False),
+            )
+            if self.model_save_dir is not None:
+                img.save(self.model_save_dir / "validation_bbs.png")
+        except Exception as e:  # drawing must never stop training
+            warnings.warn(f"could not draw validation image: {e}")
 
         if mean_val_loss < self.min_val_loss:
             self.min_val_loss = mean_val_loss

@@ -1,9 +1,10 @@
 """CLI argument parsers (port of yogo_tpu/utils/argparsers.py, which is
 flag-compatible with the reference CLI, reference:
-yogo/utils/argparsers.py:74-489): `train`, `test` and `infer` with the same
-flag names, validating types and defaults as the JAX package; `--device`
-defaults to CUDA. `infer` holds the flags of the paths ported so far, and
-`export` / `serve` are not ported yet.
+yogo/utils/argparsers.py:74-489): `train`, `test`, `infer` and `serve`
+with the same flag names, validating types and defaults as the JAX package;
+`--device` defaults to CUDA. The flags of paths not ported yet (`--quantize`,
+`--data-parallel`, `--spatial-parallel`) parse, and the commands raise naming
+their ROADMAP item. `export` is not ported yet.
 """
 
 from __future__ import annotations
@@ -105,6 +106,11 @@ def global_parser():
     infer_parser(
         parser=subparsers.add_parser(
             "infer", help="infer images using a model", allow_abbrev=False
+        )
+    )
+    serve_parser(
+        parser=subparsers.add_parser(
+            "serve", help="serve a model over HTTP", allow_abbrev=False
         )
     )
     return parser
@@ -431,19 +437,49 @@ def test_parser(parser=None):
 
 
 def infer_parser(parser=None):
-    """The flags of `infer` that are ported so far: the --count path."""
+    from yogo_tpu_torch.ops.postprocess import INFER_COUNT_MAX_DETECTIONS
+
     if parser is None:
         parser = argparse.ArgumentParser(
-            description="infer images using a model", allow_abbrev=False
+            description="infer on image data", allow_abbrev=False
         )
-    parser.add_argument("ckpt_path", type=Path, help="path to a .ckpt checkpoint")
+    parser.add_argument("ckpt_path", type=Path,
+                        help="path to checkpoint (.ckpt or .pth) defining the model")
+    data_source = parser.add_mutually_exclusive_group(required=True)
+    data_source.add_argument(
+        "--path-to-images", "--path-to-image", type=Path, default=None,
+        help="path to image or images",
+    )
+    data_source.add_argument(
+        "--path-to-zarr", type=Path, default=None,
+        help="path to zarr file (needs the zarr package)",
+    )
     parser.add_argument(
-        "--path-to-images", "--path-to-image", type=Path, required=True,
-        help="path to a .png image or a directory of them",
+        "--draw-boxes", action=boolean_action, default=False,
+        help="plot and either save (if --output-dir is set) or show each image",
+    )
+    parser.add_argument(
+        "--save-preds", action=boolean_action, default=False,
+        help="save predictions in YOGO label format - requires --output-dir",
+    )
+    parser.add_argument(
+        "--save-npy", action=boolean_action, default=False,
+        help=(
+            "Parse and save predictions in the same format as on scope - "
+            "requires --output-dir"
+        ),
     )
     parser.add_argument(
         "--count", action=boolean_action, default=False,
         help="display the final predicted counts per-class",
+    )
+    parser.add_argument(
+        "--output-dir", type=Path, default=None,
+        help="path to directory for results",
+    )
+    parser.add_argument(
+        "--class-names", type=str, nargs="*", default=None,
+        help="list of class names - will default to integers if not provided",
     )
     parser.add_argument(
         "--batch-size", type=positive_int, default=64,
@@ -453,5 +489,192 @@ def infer_parser(parser=None):
     parser.add_argument(
         "--half", action=boolean_action, default=False,
         help="bfloat16 inference (block 0 runs as the fused stem kernel)",
+    )
+    parser.add_argument(
+        "--quantize", default=False, action=boolean_action,
+        help="int8 inference: not ported yet (ROADMAP.md Queue 1 item 11), raises",
+    )
+    parser.add_argument(
+        "--crop-height", type=unitary_float,
+        help=(
+            "crop image vertically - '--crop-height 0.25' crops images to "
+            "(round(0.25 * height), width)"
+        ),
+    )
+    parser.add_argument(
+        "--output-img-filetype", type=str,
+        choices=[".png", ".tif", ".tiff"], default=".png",
+        help="filetype for output images (default: .png)",
+    )
+    parser.add_argument(
+        "--obj-thresh", type=unsigned_float, default=0.5,
+        help="objectness threshold for predictions (default: 0.5)",
+    )
+    parser.add_argument(
+        "--iou-thresh", type=unsigned_float, default=0.5,
+        help="intersection over union threshold for predictions (default: 0.5)",
+    )
+    parser.add_argument(
+        "--min-class-confidence-threshold", type=unitary_float, default=0.0,
+        help=(
+            "minimum confidence for a class to be considered - i.e. the max "
+            "confidence must be greater than this value (default: 0.0)"
+        ),
+    )
+    parser.add_argument(
+        "--max-detections", type=uint, default=INFER_COUNT_MAX_DETECTIONS,
+        help=(
+            "capacity of the on-device count path: top-K cells by "
+            "objectness kept before NMS (extension - the reference's host "
+            "NMS is uncapped) "
+            f"(default: {INFER_COUNT_MAX_DETECTIONS})"
+        ),
+    )
+    parser.add_argument(
+        "--fetch-top-k", type=uint, default=512,
+        help=(
+            "device->host candidate capacity for the artifact paths "
+            "(--save-npy/--save-preds/--draw-boxes): only the top-K cells "
+            "by objectness are fetched per image (results stay exact - "
+            "images the capacity can't prove complete fall back to a "
+            "full-tensor fetch; same knob as serve). 0 always fetches full "
+            "tensors (default: 512)"
+        ),
+    )
+    # accepted-but-unused in the reference too (reference:
+    # yogo/utils/argparsers.py:478 is its only occurrence)
+    parser.add_argument(
+        "--heatmap-mask-path", type=Path, default=None,
+        help="path to heatmap mask for the run (default: None)",
+    )
+    parser.add_argument(
+        "--data-parallel", action="store_true",
+        help="multi-device inference: not ported yet (ROADMAP.md Queue 1 item 15), raises",
+    )
+    parser.add_argument(
+        "--spatial-parallel", type=positive_int, default=1,
+        help="row-split inference: not ported yet (ROADMAP.md Queue 1 item 15), raises above 1",
+    )
+    parser.add_argument(
+        "--use-tqdm", action=boolean_action, default=True,
+        help="use tqdm progress bar",
+    )
+    return parser
+
+
+def serve_parser(parser=None):
+    """`serve` (extension - the reference has no serving daemon): an HTTP
+    inference server with micro-batching over one loaded model
+    (yogo_tpu_torch/serve.py)."""
+    if parser is None:
+        parser = argparse.ArgumentParser(
+            description="serve a model over HTTP", allow_abbrev=False
+        )
+    parser.add_argument("ckpt_path", type=Path,
+                        help="path to checkpoint (.ckpt or .pth) defining the model")
+    parser.add_argument(
+        "--host", type=str, default="127.0.0.1",
+        help="bind address (default: 127.0.0.1; 0.0.0.0 for external)",
+    )
+    parser.add_argument(
+        "--port", type=uint, default=8765,
+        help="bind port; 0 picks a free port (default: 8765)",
+    )
+    parser.add_argument(
+        "--batch-size", type=positive_int, default=8,
+        help=(
+            "micro-batch capacity: concurrent requests coalesce into one "
+            "device dispatch of this fixed shape (default: 8)"
+        ),
+    )
+    parser.add_argument(
+        "--linger-ms", type=unsigned_float, default=5.0,
+        help=(
+            "max time a request waits for batch-mates before dispatching "
+            "(latency/throughput knob) (default: 5.0)"
+        ),
+    )
+    parser.add_argument(
+        "--fetch-top-k", type=positive_int, default=512,
+        help=(
+            "device->host candidate capacity: only the top-K cells by "
+            "objectness are fetched per image (responses stay exact - a "
+            "request whose threshold the capacity can't prove complete "
+            "falls back to fetching that image's full tensor; see "
+            "/metrics full_fetch_fallbacks) (default: 512)"
+        ),
+    )
+    parser.add_argument(
+        "--pipeline-depth", type=positive_int, default=2,
+        help=(
+            "max dispatched-but-unfetched micro-batches: the batcher "
+            "assembles and uploads batch N+1 while batch N computes "
+            "(each in-flight batch holds one input + one prediction "
+            "tensor in device memory; 1 disables pipelining) (default: 2)"
+        ),
+    )
+    parser.add_argument(
+        "--max-queue", type=uint, default=None,
+        help=(
+            "load shedding: max images waiting for a dispatch slot before "
+            "new requests get 503 + Retry-After (each queued frame holds "
+            "H*W bytes of host memory; 0 disables shedding) "
+            "(default: 8 * batch size)"
+        ),
+    )
+    parser.add_argument(
+        "--max-frames-per-request", type=uint, default=None,
+        help=(
+            "cap on N for raw octet-stream BATCH requests (body = N "
+            "concatenated frames -> one HTTP round trip; also bounds the "
+            "raw path's body size) (default: 4 * batch size)"
+        ),
+    )
+    parser.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    parser.add_argument(
+        "--half", default=False, action=boolean_action,
+        help="bfloat16 inference (block 0 runs as the fused stem kernel)",
+    )
+    parser.add_argument(
+        "--quantize", default=False, action=boolean_action,
+        help="int8 serving: not ported yet (ROADMAP.md Queue 1 item 11), raises",
+    )
+    parser.add_argument(
+        "--calibration-images", type=Path, default=None,
+        help="int8 calibration images (with --quantize, which is not ported yet)",
+    )
+    parser.add_argument(
+        "--crop-height", type=unitary_float,
+        help=(
+            "crop incoming images vertically - '--crop-height 0.25' crops "
+            "to (round(0.25 * height), width) and resizes the model grid"
+        ),
+    )
+    parser.add_argument(
+        "--class-names", type=str, nargs="*", default=None,
+        help="list of class names - will default to the checkpoint's",
+    )
+    parser.add_argument(
+        "--obj-thresh", type=unsigned_float, default=0.5,
+        help="default objectness threshold (per-request override via "
+             "?obj_thresh=) (default: 0.5)",
+    )
+    parser.add_argument(
+        "--iou-thresh", type=unsigned_float, default=0.5,
+        help="default NMS IoU threshold (per-request override via "
+             "?iou_thresh=) (default: 0.5)",
+    )
+    parser.add_argument(
+        "--min-class-confidence-threshold", type=unitary_float, default=0.0,
+        help="default minimum class confidence (per-request override) "
+             "(default: 0.0)",
+    )
+    parser.add_argument(
+        "--data-parallel", action="store_true",
+        help="multi-device serving: not ported yet (ROADMAP.md Queue 1 item 15), raises",
+    )
+    parser.add_argument(
+        "--spatial-parallel", type=positive_int, default=1,
+        help="row-split serving: not ported yet (ROADMAP.md Queue 1 item 15), raises above 1",
     )
     return parser

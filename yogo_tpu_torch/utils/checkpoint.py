@@ -5,8 +5,7 @@ The file is one msgpack map {"meta": JSON str, "variables": flax tree,
 ["opt_state": bytes]}, format "yogo_tpu.ckpt.v1", the same the JAX package
 reads and writes: a checkpoint of either package resumes in the other. It
 is coded with the port's own `msgpack_lite`, so neither msgpack nor flax is
-needed. Reading reference `.pth` files is not ported yet (`load_any`
-says so).
+needed. `load_any` also reads reference `.pth` files (utils/torch_bridge.py).
 """
 
 from __future__ import annotations
@@ -126,10 +125,10 @@ def load_checkpoint(
 
 
 def load_any(path: Union[str, Path]):
-    """Load a checkpoint whatever its suffix (dispatch on content),
-    returning (model, variables, meta) as load_checkpoint does. Reference
-    `.pth` files (torch zips) are recognised and refused: their reader is
-    not ported yet."""
+    """Load a native .ckpt or a reference-format .pth, whatever its suffix
+    (dispatch on content), returning (model, variables, meta) as
+    load_checkpoint does; a .pth's meta is the reference's (step,
+    class_names, normalize_images, epoch, model_name)."""
     path = Path(path)
     is_pth = path.suffix == ".pth"
     if not is_pth and path.suffix != CKPT_SUFFIX:
@@ -137,11 +136,9 @@ def load_any(path: Union[str, Path]):
         with open(path, "rb") as f:
             is_pth = f.read(2) == b"PK"
     if is_pth:
-        raise NotImplementedError(
-            f"{path}: reading reference .pth checkpoints is not ported yet "
-            "(ROADMAP.md Queue 1 item 2); convert it with the JAX package "
-            "or pass a .ckpt"
-        )
+        from yogo_tpu_torch.utils.torch_bridge import load_pth
+
+        return load_pth(path)
     return load_checkpoint(path)
 
 
