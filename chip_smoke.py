@@ -61,7 +61,20 @@ Phases (any failure exits non-zero):
      from /metrics, latency p50/p99 of the requests that ended in it, batch
      occupancy, the server's mean timers; then the device-busy share under
      the same load (torch.profiler); a small --max-queue answers 503;
-  9. one JSON line per kernel ("kernels"), then the last line
+  9. int8 (int8_phase): the program of ops/quant.py on the golden checkpoint,
+     calibrated on the golden frames tiled to 64; csrc/int8_conv.cu against
+     its plain version on the codes entering blocks 4-6 at B=4 and 64 and
+     at odd shapes (int8 codes and f32 outputs equal); `infer --quantize`
+     through predict on the golden scene with the gates of
+     tests/test_golden_fullres_int8.py (the stem and int8 conv launch
+     counters must move); the B=64-calibrated program on the golden scene
+     fails the gates the JAX package's does (WITNESS_TILED_B64); timing
+     at B=64 (kernel, plain, unfold + torch._int_mm, cuDNN bf16, bound per
+     block; entry requant; int8 vs bf16 forward_raw and count path); `serve --quantize` at micro-batch 64
+     (answers equal the formatter over its int8 Predictor, golden counts
+     +-2, a recalibrating hot reload under load). Phase 7 also runs
+     `test --quantize` (the int8 conv launches, the stem does not);
+ 10. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -89,6 +102,12 @@ GOLDEN = REPO / "tests" / "goldens" / "detections_fullres_base.npz"
 HW = (772, 1032)
 TIMING_BATCH = 64
 RTOL, ATOL = 8e-3, 1e-2  # 1 bf16 ulp at the stem's output range
+# the JAX package's int8 program of the golden checkpoint calibrated on the
+# 4 golden frames tiled to 64, on the golden scene (tests/int8_calibration_
+# witness.py, on the CPU): one box of image 1 matches at IoU 0.726, below
+# the gate's 0.8 (calibrated on the 4 frames alone, every gate holds)
+WITNESS_TILED_B64 = {"per_image": [47, 53, 49, 29], "matched": 178,
+                     "failures": ["image 1: matched IoU 0.726, classes 1 / 1"]}
 
 # device-memory rate by card name (NVIDIA data sheets), bytes/s, and the
 # float32 rate outside the tensor cores (the stem's FMAs), FLOP/s
@@ -479,6 +498,7 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
     from yogo_tpu_torch.metrics import DeviceMetrics, Metrics
     from yogo_tpu_torch.metrics import device_metrics as dm
     from yogo_tpu_torch.models.yogo import resolve_device
+    from yogo_tpu_torch.ops import int8_conv
     from yogo_tpu_torch.ops.postprocess import format_preds_batched
     from yogo_tpu_torch.ops.stem import LAUNCHES
     from yogo_tpu_torch.train import make_eval_step, make_optimizer
@@ -488,16 +508,20 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
     from yogo_tpu_torch.utils.weights import state_dict_from_flax
 
     out = {}
-    by_command = {}
+    by_command, int8_by_command = {}, {}
     LAUNCHES.clear()
+    int8_conv.LAUNCHES.clear()
 
-    def launches_of(command, *, stem):
-        """Book the stem launches since the last call under `command`."""
+    def launches_of(command, *, stem, int8=False):
+        """Book the stem's and the int8 conv's launches since the last call
+        under `command`; each must have launched iff expected."""
         by_command[command] = dict(LAUNCHES)
+        int8_by_command[command] = int8_conv.LAUNCHES["int8_conv"]
         LAUNCHES.clear()
-        if stem != bool(by_command[command]):
-            raise AssertionError(f"stem launches in `{command}`: {by_command[command]}, "
-                                 f"expected {'some' if stem else 'none'}")
+        int8_conv.LAUNCHES.clear()
+        if stem != bool(by_command[command]) or int8 != bool(int8_by_command[command]):
+            raise AssertionError(f"launches in `{command}`: stem {by_command[command]}, int8 conv "
+                                 f"{int8_by_command[command]}; expected stem {stem}, int8 {int8}")
 
     dev = resolve_device(device_arg)
     on_card = dev.type == "cuda"
@@ -679,6 +703,24 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
             **{f"{n}_engine_{k}": v for n, e in engines.items() for k, v in e.items() if k != "metrics"},
         }
         log("cli test best.ckpt, device engine == host engine: " + json.dumps(out["test_best_ckpt"]))
+
+        # ---- test --quantize: the int8 program of `infer --quantize`,
+        # calibrated on the first test batch; the stem launches no time (the
+        # batch is cast to f32 first, as the float path casts it)
+        _, secs = wall(lambda: cli(["test", str(run / "best.ckpt"), str(defn), "--quantize", "--fast-eval",
+                                    "--include-mAP", "--dump-to-disk", "--packed-cache", cache, *dev_flags]))
+        launches_of("test --quantize", stem=False, int8=on_card)
+        with open("test_metrics.pkl", "rb") as f:
+            mq = pickle.load(f)
+        if not (np.isfinite(mq[0]) and np.isfinite(mq[1]["map"])):
+            raise AssertionError(f"test --quantize: loss {mq[0]}, mAP {mq[1]['map']}")
+        out["test_quantize"] = {
+            "command_s": secs, "loss": mq[0], "mAP": mq[1]["map"], "confusion": np.asarray(mq[2]).tolist(),
+            "missed": np.asarray(mq[8]).tolist(), "extra": np.asarray(mq[9]).tolist(),
+            "bf16_loss": md[0], "bf16_mAP": md[1]["map"],
+            "int8_conv_launches": int8_by_command["test --quantize"],
+        }
+        log("cli test --quantize best.ckpt: " + json.dumps(out["test_quantize"]))
 
         # ---- the engines on real detections: the trained golden checkpoint
         # over the same test split (its classes are the generator's)
@@ -875,7 +917,9 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
         log("cli infer artifacts, files byte-equal for --fetch-top-k 512 / 16 / 0: "
             + json.dumps(out["infer_artifacts"]))
         out["stem_launches_by_command"] = by_command
+        out["int8_conv_launches_by_command"] = int8_by_command
         log("stem launches by command: " + json.dumps(by_command))
+        log("int8 conv launches by command: " + json.dumps(int8_by_command))
         return out, by_command
     finally:
         os.chdir(cwd)
@@ -1061,6 +1105,354 @@ def serve_phase(device_arg, imgs4, *, ckpt=CKPT, want_per_image=None, batches=(8
     return out, launches
 
 
+# device int8 rate (dense, NVIDIA data sheets), operations/s
+INT8_RATE = {"H100 PCIe": 1513e12, "H100 NVL": 1671e12, "H200": 1979e12, "H100": 1979e12}
+
+
+def int8_rate(name: str) -> float:
+    for key, rate in INT8_RATE.items():
+        if key in name:
+            return rate
+    raise RuntimeError(f"no int8 rate known for {name!r}")
+
+
+def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timing=True,
+               serve_load_s=3.0, threads=64):
+    """Phase 9: the int8 program (ops/quant.py, csrc/int8_conv.cu) on
+    `ckpt`. device_arg None runs on the card; "cpu" rehearses the control
+    flow. In order:
+      1. the program built by quantize_conv_stack, calibrated on the golden
+         frames tiled to `batch`; the kernel against its plain version on
+         the codes entering blocks 4, 5 and 6 at B=4 and B=`batch` (int8
+         codes and f32 outputs equal) and at odd shapes (C_in 8 / 24 / 256,
+         C_out 7, 1x1, a 3x5 image at stride 2, SiLU);
+      2. `infer --quantize` through predict(quantize=True, batch_size=4) on
+         the 4 golden frames: the gates of tests/test_golden_fullres_int8.py
+         against the committed bf16 detections; the stem's and the int8
+         conv's launch counts set to 0 just before and read just after,
+         both must move;
+      3. timing at B=`batch` (timing=True): each quantized block's kernel
+         against its plain version, the library route (unfold in f16, int8,
+         torch._int_mm, the epilogue in torch ops) and cuDNN's bf16 conv of
+         the block; the entry requant; the int8 and bf16 forward_raw; the
+         skipped blocks in f32 and in bf16 (time, head difference); the int8
+         count path's images/s from host and device batches;
+      4. `serve --quantize --calibration-images` at micro-batch `batch`:
+         raw frames bit-equal to the host formatter over the server's int8
+         Predictor.forward of a batch of the server's shape, golden counts
+         +-2, `serve_load_s` of load from `threads` clients with a hot reload
+         that recalibrates (zero errors, no kernel built or loaded).
+    Returns (numbers for the report, launches by path). Every check raises."""
+    import threading
+
+    from yogo_tpu_torch import kernels
+    from yogo_tpu_torch.infer import Predictor, predict
+    from yogo_tpu_torch.models.yogo import resolve_device
+    from yogo_tpu_torch.ops import int8_conv as ic
+    from yogo_tpu_torch.ops import quant
+    from yogo_tpu_torch.ops.postprocess import format_preds
+    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
+    from yogo_tpu_torch.serve import build_server, format_detections
+    from yogo_tpu_torch.tools import serve_load
+    from yogo_tpu_torch.tools.golden_scene import int8_gates
+
+    dev = resolve_device(device_arg)
+    on_card = dev.type == "cuda"
+    out, launches = {}, {}
+    n = len(imgs4)
+    big = np.concatenate([imgs4] * (batch // n))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ---------------------------------------- 1. the program; kernel vs plain
+    sync()
+    t0 = time.perf_counter()
+    pred = Predictor.from_checkpoint(ckpt, device=dev, quantize=True, calib=[big])
+    sync()
+    out["quantize_s"] = time.perf_counter() - t0
+    qp, model = pred.qp, pred.model
+    specs = model.defn.blocks
+    qblocks = [1 + j for j, b in enumerate(qp["blocks"]) if "w8" in b]
+    if qblocks != [4, 5, 6]:
+        raise AssertionError(f"int8 blocks {qblocks}, expected [4, 5, 6] on base_model")
+
+    def block_args(i, codes):
+        """The int8 conv call of block i on `codes`: args, kwargs."""
+        blk, spec = qp["blocks"][i - 1], specs[i]
+        s8 = i + 1 < len(specs) and "w8" in qp["blocks"][i]
+        return (codes, blk["w8"], blk["deq"], blk["b"]), dict(
+            cin=specs[i - 1].out, stride=spec.stride, padding=spec.padding, act=spec.act,
+            out_scale=qp["scales"][i:i + 1] if s8 else None)
+
+    def codes_at(x):
+        rec = []
+        quant.quantized_forward(model, qp, torch.from_numpy(x).to(dev), decode=False, record=rec)
+        return dict(zip(qblocks, rec))
+
+    def check(args, kw, what):
+        """Kernel == plain version: int8 codes equal, f32 within 1 ulp of
+        the largest value (the same roundings: expected equal)."""
+        got = ic.int8_conv(*args, **kw)
+        want = ic.int8_conv_reference(*args, **kw)
+        sync()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"int8 conv {what}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+        if got.dtype == torch.int8:
+            err = float((got.int() - want.int()).abs().max())
+            if err:
+                raise AssertionError(f"int8 conv {what}: codes differ by up to {err}")
+        else:
+            err = float((got - want).abs().max())
+            if err > float(np.spacing(np.float32(want.abs().max().item()))):
+                raise AssertionError(f"int8 conv {what}: f32 output off by {err}")
+        return err
+
+    errs = {}
+    for bsz in (n, batch):
+        codes = codes_at(big[:bsz])
+        for i, q in codes.items():
+            args, kw = block_args(i, q.contiguous())
+            errs[f"block{i}_b{bsz}"] = check(args, kw, f"block {i} B={bsz}")
+        del codes
+    rng = np.random.default_rng(0)
+    for name, (b, h, w, cin, cout, k, s, act, s8) in {
+        "cin8_s1": (2, 9, 11, 8, 16, 3, 1, "leaky_relu", True),
+        "cin24_cout7_s2": (2, 9, 11, 24, 7, 3, 2, "leaky_relu", False),
+        "cin256_1x1": (2, 6, 9, 256, 8, 1, 1, None, False),
+        "3x5_s2_silu": (3, 3, 5, 40, 40, 3, 2, "silu", True),
+        "cin384_cout384": (2, 17, 33, 384, 384, 3, 1, "silu", False),
+    }.items():
+        x = rng.integers(-127, 128, (b, h, w, cin)).astype(np.int8)
+        cp = ic.padded_channels(cin)
+        q = torch.from_numpy(np.pad(x, ((0, 0), (0, 0), (0, 0), (0, cp - cin)))).to(dev)
+        w8 = ic.pack_weights(rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)).to(dev)
+        deq = torch.from_numpy(rng.uniform(1e-4, 1e-2, cout).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.normal(0, 0.5, cout).astype(np.float32)).to(dev)
+        kw = dict(cin=cin, stride=s, padding=(k - 1) // 2, act=act,
+                  out_scale=torch.tensor([0.05], device=dev) if s8 else None)
+        errs[name] = check((q, w8, deq, bias), kw, name)
+    out["max_abs_err"] = max(errs.values())
+    out["max_abs_err_by_case"] = errs
+    log(f"int8_conv vs plain: max abs err {out['max_abs_err']} over {list(errs)}")
+
+    # ----------------------------------- 2. infer --quantize, golden scene
+    tmp_ctx = tempfile.TemporaryDirectory()
+    img_dir = Path(tmp_ctx.name) / "golden"
+    img_dir.mkdir()
+    for i in range(n):
+        write_png_gray(img_dir / f"g{i}.png", imgs4[i, 0])
+    try:
+        STEM_LAUNCHES.clear()
+        ic.LAUNCHES.clear()
+        preds = predict(ckpt, path_to_images=img_dir, return_full_predictions=True, batch_size=4,
+                        quantize=True, device=dev)
+        launches["infer"] = {**dict(STEM_LAUNCHES), **dict(ic.LAUNCHES)}
+        if on_card and (launches["infer"].get("stem_nhwc", 0) < 1 or launches["infer"].get("int8_conv", 0) < 3):
+            raise AssertionError(f"infer --quantize launched {launches['infer']}")
+        dets = [format_preds(p, obj_thresh=0.5, iou_thresh=0.5) for p in preds]
+        out["golden"] = int8_gates(dets, golden)
+        if out["golden"]["failures"]:
+            raise AssertionError(f"infer --quantize golden gates: {out['golden']}")
+        out["golden"]["launches"] = launches["infer"]
+        # the program of step 1, calibrated on the frames tiled to B=batch,
+        # on the golden scene: at B=64 it must fail the gates the JAX
+        # package's program calibrated on the same batch fails, no more
+        dec = quant.quantized_forward(model, qp, torch.from_numpy(imgs4).to(dev)).cpu().numpy()
+        tiled = int8_gates([format_preds(p, obj_thresh=0.5, iou_thresh=0.5) for p in dec], golden)
+        out["golden_calibrated_b%d" % batch] = tiled
+        want = WITNESS_TILED_B64 if batch == 64 else {"failures": []}
+        if {k: tiled[k] for k in want} != want:
+            raise AssertionError(f"int8 program calibrated on B={batch}, golden scene: {tiled}; "
+                                 f"JAX's on the same batch: {want}")
+        del dec
+        log("infer --quantize on the golden scene: " + json.dumps(out["golden"]))
+
+        # ------------------------------------------------ 3. timing at B=batch
+        if timing:
+            out["timing"] = int8_timing(dev, pred, big, codes_at, block_args)
+            log("int8 timing (B=%d): %s" % (batch, json.dumps(out["timing"])))
+
+        # ------------------------------- 4. serve --quantize, micro-batch B
+        frames = [np.ascontiguousarray(f) for f in imgs4]
+        thr = {"obj_thresh": 0.5, "iou_thresh": 0.5, "min_class_confidence_threshold": 0.0}
+        classes = list(pred.meta.get("class_names") or pred.meta.get("classes"))
+        del pred, qp, preds
+        if on_card:
+            torch.cuda.empty_cache()
+        STEM_LAUNCHES.clear()
+        ic.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        srv = build_server(ckpt, port=0, device=dev, batch_size=batch, quantize=True,
+                           calibration_images=img_dir, linger_ms=5.0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        rep = {"build_calibrate_warmup_s": time.perf_counter() - t0, "batch": batch}
+        try:
+            served = srv.yogo_state["predictor"]
+            x = np.zeros((batch, *frames[0].shape), np.uint8)
+            x[:n] = np.stack(frames)
+            want = [format_detections(d, classes, **thr) for d in served.forward(x)[:n].cpu().numpy()]
+            port = srv.server_address[1]
+            from yogo_tpu_torch.serve_client import ServeClient
+
+            with ServeClient("127.0.0.1", port, timeout=120) as c:
+                got = [c.predict(f) for f in frames]
+            if got != want:
+                raise AssertionError("serve --quantize: answers differ from the host formatter over "
+                                     "the server's int8 Predictor.forward")
+            per_image = [sum(r["counts"].values()) for r in got]
+            want_per_image = [len(golden[f"dets_{i}"]) for i in range(n)]
+            if any(abs(a - b) > 2 for a, b in zip(per_image, want_per_image)):
+                raise AssertionError(f"serve --quantize: per-image {per_image} vs golden {want_per_image}")
+            builds0, loaded0 = dict(kernels.BUILDS), dict(kernels._loaded)
+            load = serve_load.measure(port, frames, want, threads=threads, seconds=serve_load_s,
+                                      midway=srv.reload_checkpoint)
+            reload, errors = load.pop("midway"), load.pop("errors")
+            new_qp = srv.yogo_state["predictor"].qp
+            if not reload["ok"] or new_qp is served.qp:
+                raise AssertionError(f"serve --quantize: the hot reload did not recalibrate: {reload}")
+
+            def leaves(qp):
+                return [qp["stem_w"], qp["stem_b"], qp["scales"], *(t for b in qp["blocks"] for t in b.values())]
+
+            # the same checkpoint on the same images, under load: the same program
+            if not all(torch.equal(a, b) for a, b in zip(leaves(served.qp), leaves(new_qp))):
+                raise AssertionError("serve --quantize: recalibrating under load built another program")
+            if dict(kernels.BUILDS) != builds0 or dict(kernels._loaded) != loaded0:
+                raise AssertionError("serve --quantize: the reload rebuilt or reloaded a kernel")
+            if errors or not load["requests_in_window"]:
+                raise AssertionError(f"serve --quantize: {len(errors)} errors under load: {errors[:5]}")
+            rep.update(per_image=per_image, bit_equal=True, load={**load, "errors": 0, "reload": reload})
+        finally:
+            srv.shutdown()
+            srv.yogo_batcher.shutdown()
+            srv.server_close()
+            th.join(timeout=30)
+        launches["serve"] = {**dict(STEM_LAUNCHES), **dict(ic.LAUNCHES)}
+        if on_card and launches["serve"].get("int8_conv", 0) < 3:
+            raise AssertionError(f"serve --quantize launched {launches['serve']}")
+        rep["launches"] = launches["serve"]
+        out["serve"] = rep
+        log(f"serve --quantize B={batch}: " + json.dumps(rep))
+    finally:
+        tmp_ctx.cleanup()
+    return out, launches
+
+
+def forward_profile(fns, reps=3, top=12):
+    """Device time of each fn() by kernel (torch.profiler, CUDA activity
+    only), per call: the `top` kernels and the sum of all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, getattr(e, "device_time_total", 0) / 1e3 / reps, e.count / reps)
+                       for e in prof.key_averages()), key=lambda r: -r[1])
+        out[name] = {"device_ms": sum(r[1] for r in rows),
+                     "kernels": [{"kernel": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:top]]}
+    return out
+
+
+def int8_timing(dev, pred, big, codes_at, block_args):
+    """Phase 9's timing at B=len(big): per quantized block the kernel, its
+    plain version, the library route, cuDNN's bf16 conv and the bound; the
+    entry requant; the int8 and bf16 forward_raw; the int8 count path from host and device batches."""
+    import torch.nn.functional as F
+
+    from yogo_tpu_torch.infer import Predictor
+    from yogo_tpu_torch.ops import int8_conv as ic
+    from yogo_tpu_torch.ops import quant
+
+    kind = torch.cuda.get_device_name(0)
+    model, qp = pred.model, pred.qp
+    specs = model.defn.blocks
+    bsz = len(big)
+    x64 = torch.from_numpy(big).to(dev)
+    codes = codes_at(big)
+    res = {"blocks": {}}
+    for i, q in codes.items():
+        q = q.contiguous()
+        args, kw = block_args(i, q)
+        spec, cin = specs[i], kw["cin"]
+        blk = qp["blocks"][i - 1]
+        w8, deq, bias = blk["w8"], blk["deq"], blk["b"]
+        cout, k = w8.shape[:2]
+        out = ic.int8_conv(*args, **kw)
+        m = out.shape[0] * out.shape[1] * out.shape[2]
+        n_ops = 2 * m * cout * k * k * cin
+        n_bytes = q.numel() + w8.numel() + 8 * cout + out.numel() * out.element_size()
+        bound = {"bytes": n_bytes / mem_rate(kind) * 1e3, "operations": n_ops / int8_rate(kind) * 1e3}
+        w_oihw = w8[..., :cin].permute(0, 3, 1, 2).contiguous()
+        w_mm = w_oihw.reshape(cout, -1)  # (N, K) in unfold's (c, dy, dx) order
+
+        def library():
+            """unfold in f16 (int8 codes are exact there), int8, torch._int_mm,
+            then the same epilogue in torch ops."""
+            xh = q[..., :cin].permute(0, 3, 1, 2).half()
+            cols = F.unfold(xh, k, padding=spec.padding, stride=spec.stride)  # (B, K, L)
+            a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
+            acc = torch._int_mm(a, w_mm.t())
+            h = quant._act(spec.act, acc.float() * deq + bias)
+            if kw["out_scale"] is not None:
+                return torch.clamp(torch.round(h / kw["out_scale"]), -127, 127).to(torch.int8)
+            return h
+
+        lib = library().reshape(out.shape[0], out.shape[1], out.shape[2], -1)
+        if not torch.equal(lib, out[..., : lib.shape[-1]]):
+            raise AssertionError(f"block {i}: the library route differs from the kernel")
+        h_bf16 = (q[..., :cin].permute(0, 3, 1, 2).float() * 0.01).to(torch.bfloat16)
+        w_bf16 = w_oihw.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        res["blocks"][f"block{i}"] = {
+            "shape": {"in": list(q.shape), "out": list(out.shape), "out_dtype": str(out.dtype)},
+            "ms": cuda_ms(lambda: ic.int8_conv(*args, **kw), 20),
+            "plain_ms": cuda_ms(lambda: ic.int8_conv_reference(*args, **kw), 3, per_rep=1, warmup=1),
+            "library_ms": cuda_ms(library, 10, per_rep=5),
+            "cudnn_bf16_conv_ms": cuda_ms(lambda: F.conv2d(h_bf16, w_bf16, None, spec.stride, spec.padding), 20),
+            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+            "bytes": n_bytes, "operations": n_ops,
+        }
+        res["blocks"][f"block{i}"]["bound_share"] = (
+            res["blocks"][f"block{i}"]["bound_ms"] / res["blocks"][f"block{i}"]["ms"])
+        del lib, out, h_bf16
+    # the entry requant: an f32 activation of block 3's output shape -> codes
+    b4 = codes[4]
+    h3 = torch.empty((bsz, b4.shape[-1], b4.shape[1], b4.shape[2]), device=dev).uniform_(-4, 4)
+    h3 = h3.contiguous(memory_format=torch.channels_last)
+    res["entry_requant_ms"] = cuda_ms(lambda: quant.requant(h3, qp["scales"][3]), 20)
+    del h3, b4, codes
+    bf16 = Predictor(model.with_compute_dtype(torch.bfloat16), pred.stack)
+    res["forward_raw_ms"] = {
+        "int8": cuda_ms(lambda: pred.forward_raw(x64), 10),
+        "bf16": cuda_ms(lambda: bf16.forward_raw(x64), 10),
+    }
+    res["profile"] = forward_profile({"int8": lambda: pred.forward_raw(x64),
+                                      "bf16": lambda: bf16.forward_raw(x64)})
+    for src, batch in (("host", torch.from_numpy(big)), ("device", x64)):
+        ones = torch.ones(bsz, dtype=torch.bool)
+        for _ in range(2):
+            pred.count(pred.forward_raw(batch), ones)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            pred.count(pred.forward_raw(batch), ones)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        q = statistics.quantiles(times, n=4)
+        res[f"count_path_{src}"] = {"img_per_s": len(times) * bsz / (sum(times) / 1e3),
+                                    "batch_ms_median": statistics.median(times), "batch_ms_p75": q[2],
+                                    "batches": len(times)}
+    return res
+
+
 def main() -> int:
     # ------------------------------------------------------------ 1. device
     if not torch.cuda.is_available():
@@ -1102,7 +1494,7 @@ def main() -> int:
             log(f"sass {fn}: {json.dumps(s)}")
 
     # ------------------------------------- 3. kernels vs their plain versions
-    golden = np.load(GOLDEN)
+    golden = dict(np.load(GOLDEN))
     n_img = 4
     want_per_image = [len(golden[f"dets_{i}"]) for i in range(n_img)]
     want_classes = np.zeros(2, np.int64)
@@ -1296,7 +1688,16 @@ def main() -> int:
         "count_path_b64_img_per_s": {src: ceiling[f"count_path_{src}"]["img_per_s"]
                                      for src in ("host", "device")}}))
 
-    # ------------------------------------------------------------ 9. report
+    # -------------------------------------------------------------- 9. int8
+    torch.cuda.empty_cache()
+    report["int8"], int8_launches = int8_phase(None, imgs4, golden)
+    t8 = report["int8"]["timing"]
+    log("int8 against bf16 (" + smi + "): " + json.dumps({
+        "forward_raw_ms": t8["forward_raw_ms"],
+        "count_path_img_per_s": {f"{p}_{src}": (t8 if p == "int8" else ceiling)[f"count_path_{src}"]["img_per_s"]
+                                 for p in ("int8", "bf16") for src in ("host", "device")}}))
+
+    # ----------------------------------------------------------- 10. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -1317,6 +1718,35 @@ def main() -> int:
             "bound_share": timing["bound_ms"] / timing[layout]["ms"],
             "library_ms": timing[layout]["library_ms"],
         })
+    blocks = t8["blocks"]
+
+    def total(key):
+        return sum(b[key] for b in blocks.values())
+
+    by = {}
+    for b in blocks.values():
+        by[b["bound_by"]] = by.get(b["bound_by"], 0.0) + b["bound_ms"]
+    rows.append({
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "yogo_tpu_torch/csrc/int8_conv.cu",
+        # the XLA s8 conv of the JAX package's quantized forward (no Pallas kernel)
+        "replaces": "yogo_tpu/ops/quant.py:612",
+        "launches": int8_launches["infer"]["int8_conv"],
+        "launches_test_quantize": report["cli"]["int8_conv_launches_by_command"]["test --quantize"],
+        "launches_serve_quantize_b64": int8_launches["serve"]["int8_conv"],
+        "max_abs_err": report["int8"]["max_abs_err"],
+        # the three quantized blocks of one B=64 forward, summed; by block beside
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": max(by, key=by.get),
+        "bound_share": total("bound_ms") / total("ms"),
+        "library_ms": total("library_ms"),
+        "by_block": {k: {key: b[key] for key in ("ms", "plain_ms", "library_ms", "cudnn_bf16_conv_ms",
+                                                   "bound_ms", "bound_by", "bound_share")}
+                     for k, b in blocks.items()},
+    })
     report["kernels"] = rows
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": rows}))

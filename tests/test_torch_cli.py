@@ -7,6 +7,7 @@ trained golden checkpoint against the JAX package's `yogo test`."""
 import argparse
 import json
 import pickle
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -18,6 +19,7 @@ from tests.data_fixtures import CLASSES, make_pair_dirs, write_defn
 from yogo_tpu.utils import argparsers as jargs
 from yogo_tpu.utils.test_model import test_model as jax_test_model
 from yogo_tpu_torch.__main__ import main
+from yogo_tpu_torch.infer import get_prediction_class_counts
 from yogo_tpu_torch.models.yogo import YOGO
 from yogo_tpu_torch.utils import argparsers as targs
 from yogo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -96,8 +98,7 @@ def test_global_parser_dispatches_three_subcommands_and_infer_keeps_its_flags(ca
         with pytest.raises(SystemExit):
             p.parse_args(bad)
     # the flags of paths not ported yet parse, and the command raises
-    for argv, item in ((["infer", "m.ckpt", "--path-to-images", "d", "--quantize"], "item 11"),
-                       (["serve", "m.ckpt", "--spatial-parallel", "2"], "item 15")):
+    for argv, item in ((["serve", "m.ckpt", "--spatial-parallel", "2"], "item 15"),):
         with pytest.raises(NotImplementedError, match=item):
             main([*argv, "--device", "cpu"])
 
@@ -202,8 +203,43 @@ def test_test_model_class_mismatch_and_quantize_fail_fast(tmp_path, fresh_ckpt, 
                       split={"train": 0.5, "val": 0.25, "test": 0.25})
     with pytest.raises(ValueError, match="classes"):
         run_test_model(entry_args(fresh_ckpt, defn))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_test_model(entry_args(fresh_ckpt, fixture_tree, quantize=True))
+    # the mismatch is refused before a batch is taken to calibrate on
+    with pytest.raises(ValueError, match="classes"):
+        run_test_model(entry_args(fresh_ckpt, defn, quantize=True))
+    # quarter_filters has no block wide enough for int8: the program is the
+    # folded bf16 stack, said so, and scored
+    with pytest.warns(UserWarning, match="every block is skipped"):
+        metrics = run_test_model(entry_args(fresh_ckpt, fixture_tree, quantize=True))
+    assert np.isfinite(metrics[0])
+
+
+def test_quantize_through_main_runs_the_int8_program(tmp_path, fixture_tree, monkeypatch, capsys):
+    """`test --quantize` on a base_model checkpoint (int8 blocks 4-6,
+    calibrated on the first test batch) and `infer --quantize --count` on
+    the trained golden base_model over 193-row crops of two golden frames:
+    the counts printed are those of predict(quantize=True)."""
+    from tests.test_golden_fullres import gen_test_images
+    from yogo_tpu_torch.infer import predict
+
+    monkeypatch.chdir(tmp_path)
+    model = YOGO.create((40, 56), 0.15, 0.2, len(CLASSES), model_version="base_model")
+    stack = model.init(torch.Generator().manual_seed(0), device="cpu")
+    save_checkpoint(tmp_path / "b.ckpt", model, flax_from_state_dict(stack.state_dict()), classes=CLASSES)
+    main(["test", str(tmp_path / "b.ckpt"), str(fixture_tree), "--device", "cpu", "--quantize"])
+    out = capsys.readouterr().out
+    assert "test loss:" in out and "nan" not in out.split("test loss:")[1].split()[0]
+
+    ckpt = "tests/goldens/trained_base_model_fullres.ckpt"
+    monkeypatch.chdir(Path(__file__).parent.parent)
+    gen_test_images(tmp_path / "imgs", n=2)
+    argv = ["infer", ckpt, "--path-to-images", str(tmp_path / "imgs"), "--count", "--device", "cpu",
+            "--crop-height", "0.25", "--batch-size", "2"]
+    main([*argv, "--quantize"])
+    printed = capsys.readouterr().out.strip().splitlines()[-1]
+    kw = dict(path_to_images=tmp_path / "imgs", vertical_crop_height=0.25, return_full_predictions=True,
+              batch_size=2, device="cpu")
+    counts = get_prediction_class_counts(predict(ckpt, quantize=True, **kw))
+    assert counts.sum() > 0 and printed == str([("cell", int(counts[0])), ("parasite", int(counts[1]))])
 
 
 # ----------------------------- the golden checkpoint against `yogo test` (JAX)

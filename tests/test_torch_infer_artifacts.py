@@ -150,8 +150,7 @@ def test_draw_boxes_and_a_malformed_image(img_dir, tmp_path):
 
 
 def test_unported_options_raise_naming_their_roadmap_items(img_dir, tmp_path):
-    for kw, item in (({"quantize": True}, "item 11"), ({"data_parallel": True}, "item 15"),
-                     ({"spatial_parallel": 2}, "item 15")):
+    for kw, item in (({"data_parallel": True}, "item 15"), ({"spatial_parallel": 2}, "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             predict(CKPT, path_to_images=img_dir, count_predictions=True, device="cpu", **kw)
     with pytest.raises(ValueError, match="at the same time"):

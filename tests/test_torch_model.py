@@ -24,6 +24,10 @@ from yogo_tpu_torch.utils.weights import state_dict_from_flax
 
 HW = (64, 96)
 ARCHS = ["base_model", "half_filters"]
+# every conv-stack architecture of the registry, for the f32 forward
+F32_ARCHS = ["base_model", "silu_model", "double_filters", "triple_filters", "half_filters",
+             "quarter_filters", "depth_ver_0", "depth_ver_1", "depth_ver_2", "depth_ver_3",
+             "depth_ver_4"]
 
 
 def _variables(arch: str, scale: float = 1.0):
@@ -51,7 +55,7 @@ def _images(seed: int, n: int = 2) -> np.ndarray:
 
 
 @pytest.mark.parametrize("channels_last", [True, False])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", F32_ARCHS)
 def test_f32_raw_and_decoded_match_jax(arch, channels_last):
     # damped so the untrained head stays O(1-10): undamped, its logits
     # reach ~200 and f32 summation-order noise alone nears 1e-4 relative
@@ -334,3 +338,39 @@ def test_param_and_grad_norm_match_jax():
     out.square().mean().backward()
     want = np.sqrt(sum(float(p.grad.double().pow(2).sum()) for p in stack.parameters()))
     np.testing.assert_allclose(YOGO.grad_norm(stack), want, rtol=1e-6)
+
+
+def test_no_tf32_holds_the_flag_off_while_any_thread_is_inside():
+    """The flag is global: a server's dispatch and a reload's calibration
+    hold it from two threads at once, and the first to leave must not turn
+    TF32 back on under the other (found on the card: `serve --quantize`
+    answers changed across a recalibrating reload)."""
+    import threading
+
+    from yogo_tpu_torch.models.yogo import no_tf32
+
+    cuda = torch.device("cuda")  # a device object only: nothing runs on it
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    entered, release, seen = threading.Event(), threading.Event(), []
+
+    def other():
+        with no_tf32(cuda):
+            entered.set()
+            release.wait(10)
+            seen.append(torch.backends.cudnn.allow_tf32)
+
+    try:
+        t = threading.Thread(target=other)
+        with no_tf32(cuda):
+            t.start()
+            assert entered.wait(10)
+            assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False  # the other thread is still inside
+        release.set()
+        t.join(10)
+        assert seen == [False] and torch.backends.cudnn.allow_tf32 is True
+        with no_tf32(torch.device("cpu")):
+            assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

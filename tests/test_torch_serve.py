@@ -453,8 +453,7 @@ def test_serve_rejects_duplicate_class_names():
 
 
 def test_unported_options_raise_naming_their_roadmap_items():
-    for kw, item in (({"quantize": True}, "item 11"), ({"data_parallel": True}, "item 15"),
-                     ({"spatial_parallel": 4}, "item 15")):
+    for kw, item in (({"data_parallel": True}, "item 15"), ({"spatial_parallel": 4}, "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             build_server(CKPT, port=0, device="cpu", **kw)
 
@@ -557,3 +556,52 @@ def test_serve_sigterm_graceful_shutdown():
     assert "SIGTERM" in err and "shutting down" in err, err[-2000:]
     assert "SIGHUP reload: {'ok': True" in err, err[-2000:]
     assert result["resp"][0] == 200
+
+
+BASE_CKPT = REPO / "tests" / "goldens" / "trained_base_model_fullres.ckpt"
+
+
+def test_quantized_server_answers_equal_its_int8_predictor_and_reloads(request, tmp_path):
+    """`serve --quantize --calibration-images` on the trained base_model
+    (int8 blocks 4-6), 193-row crops of its golden frames, micro-batch 2:
+    calibrated on max(2, 8) -> both images of the directory; each answer
+    is bit-equal to the host formatter over the server's int8
+    Predictor.forward of a batch of the server's shape; a reload
+    recalibrates (a new program, the same answers) and builds no kernel."""
+    from tests.test_golden_fullres import gen_test_images as gen_fullres
+    from yogo_tpu_torch import kernels
+    from yogo_tpu_torch.data.image_source import get_dataset
+
+    gen_fullres(tmp_path / "calib", n=2)
+    with pytest.raises(ValueError, match="calibration-images"):
+        build_server(BASE_CKPT, port=0, device="cpu", quantize=True, vertical_crop_height=0.25)
+    srv = start(request, ckpt=BASE_CKPT, batch_size=2, quantize=True, calibration_images=tmp_path / "calib",
+                vertical_crop_height=0.25, linger_ms=1.0)
+    port = srv.server_address[1]
+    info = get(port, "/healthz")
+    assert info["quantize"] is True and info["input_hw"] == [193, 1032]
+    frames = [im for im, _ in get_dataset(path_to_images=tmp_path / "calib", crop_hw=(193, 1032))][:2]
+    pred = srv.yogo_state["predictor"]
+    assert pred.qp is not None and sum("w8" in b for b in pred.qp["blocks"]) == 3
+
+    def answers():
+        return [post(port, f.tobytes(), content_type="application/octet-stream")[1] for f in frames]
+
+    want = [expected(pred.forward(in_batch(f, 2)).numpy()[0], obj_thresh=0.5, iou_thresh=0.5,
+                     min_class_confidence_threshold=0.0) for f in frames]
+    before = answers()
+    assert before == want and sum(a["counts"]["cell"] + a["counts"]["parasite"] for a in before) > 0
+    builds = dict(kernels.BUILDS)
+    assert srv.reload_checkpoint()["ok"] is True
+    assert srv.yogo_state["predictor"] is not pred and srv.yogo_state["predictor"].qp is not pred.qp
+    assert answers() == before and dict(kernels.BUILDS) == builds
+    assert get(port, "/healthz")["reloads"] == 1
+
+
+def test_quantized_server_without_int8_blocks_needs_no_calibration(request):
+    """half_filters has no block wide enough for int8: `--quantize` serves
+    the folded bf16 program, with no calibration images."""
+    with pytest.warns(UserWarning, match="every block is skipped"):
+        srv = start(request, batch_size=2, quantize=True)
+    assert get(srv.server_address[1], "/healthz")["quantize"] is True
+    assert not any("w8" in b for b in srv.yogo_state["predictor"].qp["blocks"])

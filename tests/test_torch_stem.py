@@ -178,24 +178,27 @@ def _fake_nvcc(tmp_path, body: str):
 
 
 def test_build_runs_nvcc_for_sm90a_into_a_hashed_library(tmp_path, monkeypatch):
-    """The build plumbing, with a stand-in for nvcc (there is none here)."""
+    """The build plumbing, with a stand-in for nvcc (there is none here):
+    one nvcc per source, every one for sm_90a, each library named by its
+    sources' hash, and nothing rebuilt."""
     from yogo_tpu_torch import kernels
 
     args = tmp_path / "args"
     nvcc = _fake_nvcc(tmp_path, (
-        f'echo "$@" > {args}\n'
+        f'echo "$@" >> {args}\n'
         'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && touch "$2"; shift; done\n'
         'echo "ptxas info: 50 registers"\n'
     ))
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kernels, "find_nvcc", lambda: nvcc)
     kernels.build_all()
-    lib = kernels._lib_path("stem")
-    assert lib.exists() and lib.parent == tmp_path / "build"
-    assert "arch=compute_90a,code=sm_90a" in args.read_text()
-    assert args.read_text().rstrip().endswith("csrc/stem.cu")
-    assert "50 registers" in kernels.build_logs["stem"]
-    assert [p.name for p in (tmp_path / "build").iterdir()] == [lib.name]
+    libs = sorted(kernels._lib_path(n).name for n in kernels.SOURCES)
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == libs
+    assert sorted(kernels.SOURCES) == ["int8_conv", "stem"]
+    runs = args.read_text().splitlines()
+    assert len(runs) == 2 and all("arch=compute_90a,code=sm_90a" in r for r in runs)
+    assert sorted(r.rsplit("csrc/", 1)[1] for r in runs) == ["int8_conv.cu", "stem.cu"]
+    assert all("50 registers" in kernels.build_logs[n] for n in kernels.SOURCES)
     args.unlink()
     kernels.build_all()  # already built: nvcc is not run again
     assert not args.exists()

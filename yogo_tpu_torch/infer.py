@@ -36,6 +36,7 @@ import torch
 from yogo_tpu_torch.data.image_source import get_dataset
 from yogo_tpu_torch.data.loader import choose_dataloader_num_workers
 from yogo_tpu_torch.models.yogo import YOGO, ConvStack, resolve_device
+from yogo_tpu_torch.ops.quant import family_quant_plan, quantized_forward
 from yogo_tpu_torch.ops.postprocess import (
     INFER_COUNT_MAX_DETECTIONS,
     count_cells_for_formatted_preds,
@@ -77,7 +78,9 @@ class Predictor:
     """A loaded model on one device and the per-batch steps of predict():
     `forward_raw` (uint8 batch -> NHWC head), `count` (head + image mask ->
     per-class counts on the device), `forward` (decoded predictions) and
-    the candidate fetch (`candidates`, `decode_slice`)."""
+    the candidate fetch (`candidates`, `decode_slice`). With `qp` (the int8
+    program of ops/quant.quantize_conv_stack, on the stack's device) both
+    forwards run ops/quant.quantized_forward, whose head is f32."""
 
     def __init__(
         self,
@@ -89,10 +92,12 @@ class Predictor:
         min_class_confidence_threshold: float = 0.0,
         max_detections: int = INFER_COUNT_MAX_DETECTIONS,
         meta: Optional[dict] = None,
+        qp: Optional[dict] = None,
     ):
         self.model = model
         self.meta = meta or {}
         self.stack = stack
+        self.qp = qp
         self.device = next(stack.parameters()).device
         self.obj_thresh = obj_thresh
         self.iou_thresh = iou_thresh
@@ -108,14 +113,19 @@ class Predictor:
         device=None,
         channels_last: bool = True,
         vertical_crop_height: Optional[float] = None,
+        quantize: bool = False,
+        calib=(),
         **thresholds,
     ) -> "Predictor":
-        """Load a .ckpt or .pth onto `device` (default CUDA), as load_model."""
+        """Load a .ckpt or .pth onto `device` (default CUDA), as load_model.
+        quantize=True builds the int8 program, calibrated on `calib` (a
+        list of NCHW batches; unused when the program holds no int8 conv)."""
         model, stack, meta = load_model(
             path_to_ckpt, half=half, device=device, channels_last=channels_last,
             vertical_crop_height=vertical_crop_height,
         )
-        return cls(model, stack, meta=meta, **thresholds)
+        qp = quantize_stack(model, stack, calib) if quantize else None
+        return cls(model, stack, meta=meta, qp=qp, **thresholds)
 
     def to_device(self, imgs) -> torch.Tensor:
         """(B, C, H, W) numpy or tensor -> tensor on the model's device."""
@@ -125,11 +135,15 @@ class Predictor:
 
     def forward_raw(self, imgs) -> torch.Tensor:
         """(B, C, H, W) batch -> undecoded NHWC head (B, Sy, Sx, 5+C)."""
+        if self.qp is not None:
+            return quantized_forward(self.model, self.qp, self.to_device(imgs), decode=False)
         return self.model.apply(self.stack, self.to_device(imgs), decode=False)
 
     def forward(self, imgs) -> torch.Tensor:
         """(B, C, H, W) batch -> decoded (B, 5+C, Sy, Sx) f32, class
         softmax applied."""
+        if self.qp is not None:
+            return quantized_forward(self.model, self.qp, self.to_device(imgs), inference=True)
         return self.model.apply(self.stack, self.to_device(imgs), inference=True)
 
     def count(self, raw: torch.Tensor, image_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -166,6 +180,22 @@ class Predictor:
             raw, slot, m.anchor_w, m.anchor_h,
             width_multiplier=m.width_multiplier, height_multiplier=m.height_multiplier,
         )
+
+
+def needs_calibration(model: YOGO) -> bool:
+    """Whether the int8 program of this architecture holds an int8 conv,
+    and so reads calibration images (a narrow one runs bf16 throughout)."""
+    return not family_quant_plan(model, None)[3]
+
+
+def quantize_stack(model: YOGO, stack: ConvStack, calib) -> dict:
+    """The int8 program of a loaded stack, on the stack's device,
+    calibrated on `calib` (a list of NCHW batches), which may be empty only
+    when the program needs no calibration."""
+    if needs_calibration(model) and not calib:
+        raise ValueError("--quantize needs at least one image to calibrate")
+    build_qp = family_quant_plan(model, stack, device=next(stack.parameters()).device)[0]
+    return build_qp(calib)
 
 
 def save_predictions(fnames, batch_preds, obj_thresh=0.5, iou_thresh=0.5):
@@ -235,14 +265,10 @@ def predict(
     """Mirrors yogo_tpu.infer.predict on one device (default CUDA;
     device="cpu" runs on the CPU). Prints the per-class counts with
     count_predictions, writes the artifacts asked for, and returns
-    (N, 5+C, Sy, Sx) f32 with return_full_predictions. `quantize` waits for
-    the int8 port (ROADMAP.md Queue 1 item 11) and `data_parallel` /
-    `spatial_parallel` for the parallelism port (item 15): both raise."""
-    if quantize:
-        raise NotImplementedError(
-            "--quantize is not ported yet: int8 inference needs an s8 x s8 -> "
-            "s32 conv for Hopper (ROADMAP.md Queue 1 item 11)"
-        )
+    (N, 5+C, Sy, Sx) f32 with return_full_predictions. `quantize` runs the
+    int8 program (ops/quant.py), calibrated on the run's first batch_size
+    images; `data_parallel` / `spatial_parallel` wait for the parallelism
+    port (ROADMAP.md Queue 1 item 15) and raise."""
     if data_parallel or spatial_parallel > 1:
         raise NotImplementedError(
             "--data-parallel / --spatial-parallel are not ported yet "
@@ -302,6 +328,23 @@ def predict(
     )
     n_images = len(dataset)
     num_workers = choose_dataloader_num_workers(n_images, requested_num_workers=requested_num_workers)
+
+    if quantize:
+        if n_images == 0:
+            raise ValueError("--quantize needs at least one image to calibrate")
+        # calibrate on the run's own leading images, decoded once more by
+        # the batch loop below (yogo_tpu/infer.py:311-350); a program with
+        # no int8 conv decodes none
+        calib = []
+        if needs_calibration(model):
+            idxs = range(min(batch_size, n_images))
+            if num_workers > 0:
+                with ThreadPoolExecutor(max_workers=num_workers) as pool:
+                    items = list(pool.map(dataset.__getitem__, idxs))
+            else:
+                items = [dataset[i] for i in idxs]
+            calib = [np.stack([im for im, _ in items])]
+        pred.qp = quantize_stack(model, pred.stack, calib)
 
     sx, sy = model.grid
     pred_dim = 5 + num_classes

@@ -43,6 +43,13 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         ),
         "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "int8_conv": {
+        "yogo_int8_conv_launch": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+        ),
+        "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _lock = threading.Lock()

@@ -26,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Iterable, Optional, Tuple
 
@@ -271,21 +272,36 @@ def decode_rows(
     return torch.cat([torch.stack([xc, yc, w, h, obj], dim=-1), cls], dim=-1)
 
 
+_tf32_lock = threading.Lock()
+_tf32_holders = 0  # threads inside no_tf32 on a CUDA device
+_tf32_saved = True
+
+
 @contextlib.contextmanager
 def no_tf32(device: torch.device):
     """cuDNN runs float32 convs in TF32 by default on Ampere and later;
     the float32 path turns that off for its duration. A training step
     holds it around forward AND backward: the flag is read when each
-    kernel is chosen, the gradient convs' included."""
+    kernel is chosen, the gradient convs' included. The flag is global, so
+    holders are counted: it stays off while any thread holds it (a server's
+    dispatch and a reload's calibration at once) and comes back when the
+    last one leaves."""
+    global _tf32_holders, _tf32_saved
     if device.type != "cuda":
         yield
         return
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    with _tf32_lock:
+        if _tf32_holders == 0:
+            _tf32_saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_holders += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        with _tf32_lock:
+            _tf32_holders -= 1
+            if _tf32_holders == 0:
+                torch.backends.cudnn.allow_tf32 = _tf32_saved
 
 
 @dataclass(frozen=True)
@@ -396,8 +412,16 @@ class YOGO:
         conv3x3 s2 p1 without bias + BN + LeakyReLU and no dropout, bf16
         compute, raw uint8 input, even H and W, and C a width the kernel is
         built for."""
-        if train or stack.training:
+        if train or stack.training or self.compute_dtype != torch.bfloat16:
             return False
+        return self.stem_kernel_takes(x)
+
+    def stem_kernel_takes(self, x: torch.Tensor) -> bool:
+        """Whether the fused stem kernel computes block 0 of this
+        architecture on input x: the canonical block 0 (see
+        stem_kernel_eligible), raw uint8 input, even H and W. The int8
+        program asks this alone: its block 0 is bf16 whatever the compute
+        dtype."""
         if self.defn.family != "conv_stack" or self.input_channels != 1:
             return False
         b0 = self.defn.blocks[0]
@@ -413,7 +437,7 @@ class YOGO:
             and b0.out in STEM_CHANNELS
         ):
             return False
-        if self.compute_dtype != torch.bfloat16 or x.dtype != torch.uint8:
+        if x.dtype != torch.uint8:
             return False
         h, w = x.shape[-2:]
         return h % 2 == 0 and w % 2 == 0

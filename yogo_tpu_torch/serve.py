@@ -37,8 +37,10 @@ the scattered top-K candidates of each image, or over its full decoded slice
 when the request's obj_thresh undercuts the K-th candidate: a response equals
 format_preds on the full decoded forward of the same pixels, bit for bit.
 
-`--quantize` waits for the int8 port (ROADMAP.md Queue 1 item 11) and
-multi-device serving for the parallelism port (item 15): both raise.
+`--quantize` serves the int8 program (ops/quant.py), calibrated on up to
+max(batch_size, 8) images of `--calibration-images`; the server keeps those
+batches, and a hot reload recalibrates on them. Multi-device serving waits
+for the parallelism port (ROADMAP.md Queue 1 item 15) and raises.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from yogo_tpu_torch.infer import Predictor, load_model
+from yogo_tpu_torch.infer import Predictor, load_model, needs_calibration, quantize_stack
 from yogo_tpu_torch.models.yogo import resolve_device
 from yogo_tpu_torch.ops.postprocess import _cxcywh_to_xyxy_np, format_preds, scatter_candidates
 from yogo_tpu_torch.utils.checkpoint import load_any
@@ -309,11 +311,6 @@ def build_server(
     """Load the model onto `device` (default CUDA), warm it up, and return
     a ready (not yet serving) ThreadingHTTPServer. Callers run
     serve_forever(); tests drive it from a thread and shut it down."""
-    if quantize:
-        raise NotImplementedError(
-            "--quantize is not ported yet: int8 serving needs an s8 x s8 -> "
-            "s32 conv for Hopper (ROADMAP.md Queue 1 item 11)"
-        )
     if data_parallel or spatial_parallel > 1:
         raise NotImplementedError(
             "--data-parallel / --spatial-parallel serving is not ported yet "
@@ -351,10 +348,33 @@ def build_server(
     k = max(1, min(int(fetch_top_k), n_cells))
     on_card = device.type == "cuda"
 
-    # the served Predictor: a hot reload builds a new stack off to the side
-    # and swaps this reference; a dispatch reads it once, so in-flight
-    # batches finish on the stack they started with
-    state = {"predictor": Predictor(model, stack, meta=cfg)}
+    calib: List[np.ndarray] = []
+    if quantize and needs_calibration(model):
+        # a server has no run of its own to calibrate on
+        # (yogo_tpu/serve.py:371-398); a program with no int8 conv needs none
+        if calibration_images is None:
+            raise ValueError(
+                "--quantize on a server needs --calibration-images DIR "
+                "(representative images to calibrate activation scales "
+                "on; the batch CLI calibrates on the run's own inputs)"
+            )
+        from yogo_tpu_torch.data.image_source import get_dataset
+
+        ds = get_dataset(path_to_images=calibration_images, crop_hw=crop_hw, rgb=rgb,
+                         normalize_images=normalize)
+        n = min(len(ds), max(batch_size, 8))
+        if n == 0:
+            raise ValueError("--calibration-images directory is empty")
+        calib = [np.stack([ds[i][0] for i in range(n)])]
+
+    def predictor(stack_: torch.nn.Module) -> Predictor:
+        qp = quantize_stack(model, stack_, calib) if quantize else None
+        return Predictor(model, stack_, meta=cfg, qp=qp)
+
+    # the served Predictor: a hot reload builds a new stack (and int8
+    # program) off to the side and swaps this reference; a dispatch reads it
+    # once, so in-flight batches finish on the one they started with
+    state = {"predictor": predictor(stack)}
     # pipeline_depth queued + one being fetched + one the collector holds
     slots: "queue.Queue[_Slot]" = queue.Queue()
     for _ in range(max(1, int(pipeline_depth)) + 2):
@@ -476,7 +496,7 @@ def build_server(
         "rgb": rgb,
         "normalize_images": normalize,
         "batch_size": batch_size,
-        "quantize": False,
+        "quantize": bool(quantize),
         "fetch_top_k": k,
         "pipeline_depth": max(1, int(pipeline_depth)),
         "max_queue": int(max_queue),
@@ -494,11 +514,13 @@ def build_server(
     def reload_checkpoint(path=None) -> Dict[str, Any]:
         """Swap the served weights for those of `path` (default: the
         startup checkpoint, re-read from disk). The new stack is built and
-        loaded on the device off to the side, then one reference is swapped:
-        no kernel is rebuilt or reloaded, no served parameter is written in
-        place, and in-flight batches finish on the old stack. On any failure
-        the old weights keep serving and {"ok": False, "error": ...} comes
-        back. SIGHUP triggers it under `serve`."""
+        loaded on the device off to the side (a quantized server
+        recalibrates its int8 program on the kept calibration batches), then
+        one reference is swapped: no kernel is rebuilt or reloaded, no
+        served parameter is written in place, and in-flight batches finish
+        on the old stack. On any failure the old weights keep serving and
+        {"ok": False, "error": ...} comes back. SIGHUP triggers it under
+        `serve`."""
         src = path if path is not None else ckpt_path
         with reload_lock:
             try:
@@ -516,9 +538,10 @@ def build_server(
                     new_stack.load_state_dict(state_dict_from_flax(variables2), strict=True)
                 except RuntimeError as e:
                     raise ValueError(f"incompatible reload: weight shapes differ ({e})") from e
+                new_pred = predictor(new_stack)
                 if on_card:
                     torch.cuda.current_stream(device).synchronize()  # upload off the hot path
-                state["predictor"] = Predictor(model, new_stack, meta=cfg)
+                state["predictor"] = new_pred
                 info["reloads"] += 1
                 return {"ok": True, "reloads": info["reloads"], "path": str(src)}
             except Exception as e:

@@ -40,6 +40,7 @@ from yogo_tpu_torch.data.transforms import random_flips
 from yogo_tpu_torch.losses import yogo_loss
 from yogo_tpu_torch.metrics import DeviceMetrics, Metrics
 from yogo_tpu_torch.models.yogo import REMAT_MODES, YOGO, ConvStack, no_tf32, resolve_device
+from yogo_tpu_torch.ops.quant import family_quant_forward, family_quant_plan
 from yogo_tpu_torch.utils.checkpoint import load_any, restore_opt_state, save_checkpoint
 from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
 from yogo_tpu_torch.utils.logging import RunLogger
@@ -209,15 +210,23 @@ def make_eval_step(
 ) -> Callable:
     """(stack, imgs, labels, img_mask) -> (loss, decoded inference preds):
     the loss of the eval-mode output with class logits, and the same
-    output with softmaxed classes for the metrics."""
-    if quant_params is not None:
-        raise NotImplementedError(
-            "the int8 eval path waits for the port of ops/quant.py "
-            "(ROADMAP.md Queue 1 item 11)"
-        )
+    output with softmaxed classes for the metrics.
+
+    quant_params (ops/quant.quantize_conv_stack's program) evaluates the
+    int8 inference path instead of the float forward - `test --quantize`
+    measures PTQ accuracy with the program `infer --quantize` runs (the
+    stack argument is then unused). The batch is cast to f32 first, as the
+    float path casts it to the compute dtype: block 0 then runs the plain
+    f32 conv, not the stem kernel, with the same numbers as the JAX
+    package's (uint8 and its f32 cast round alike to bf16)."""
+
+    quant_forward = family_quant_forward(model) if quant_params is not None else None
 
     def step(stack: ConvStack, imgs, labels, img_mask: Optional[torch.Tensor]):
-        out_train = model.apply(stack, imgs.to(model.compute_dtype), train=False)
+        if quant_forward is not None:
+            out_train = quant_forward(model, quant_params, imgs.float(), inference=False)
+        else:
+            out_train = model.apply(stack, imgs.to(model.compute_dtype), train=False)
         with torch.no_grad():
             loss, _ = yogo_loss(out_train, labels, image_mask=img_mask, **loss_kwargs)
             probs = torch.softmax(out_train[:, 5:], dim=1)
@@ -810,8 +819,9 @@ class Trainer:
         then built on `device`, default CUDA), or a ConvStack, which is
         used where it lies.
 
-        quantize=True is the JAX package's int8 evaluation; it is not
-        ported yet and raises.
+        quantize=True (extension) evaluates the int8 PTQ inference path
+        (the `infer --quantize` program), calibrated on the first test
+        batch - so PTQ accuracy can be measured on a real dataset.
 
         fast_eval=True (extension) accumulates metrics ON DEVICE
         (metrics/device_metrics.py): the whole per-batch update runs there
@@ -824,11 +834,6 @@ class Trainer:
         at 1024 and labels not at all) - DeviceMetrics warns at compute()
         when a scene overflowed; raise these for denser datasets."""
         Trainer._check_keys(config)
-        if quantize:
-            raise NotImplementedError(
-                "test --quantize waits for the port of ops/quant.py "
-                "(ROADMAP.md Queue 1 item 11)"
-            )
         if test_dataloader is None or len(test_dataloader) == 0:
             return None
 
@@ -872,7 +877,14 @@ class Trainer:
             classify_weight=config.get("classify_weight", df.CLASSIFY_WEIGHT),
             label_smoothing=config["label_smoothing"],
         )
-        eval_step = make_eval_step(model, loss_kwargs)
+        quant_params = None
+        if quantize:
+            # validates the family BEFORE a test batch is consumed for
+            # calibration (yogo_tpu/train.py:1031-1040)
+            build_qp = family_quant_plan(model, stack, device=device)[0]
+            calib = next(iter(test_dataloader))[0]  # len checked above
+            quant_params = build_qp([calib])
+        eval_step = make_eval_step(model, loss_kwargs, quant_params=quant_params)
 
         losses = []  # device scalars, fetched once after the loop
         for imgs, labels, mask in prefetch_to_device(test_dataloader, device):

@@ -2,8 +2,8 @@
 flag-compatible with the reference CLI, reference:
 yogo/utils/argparsers.py:74-489): `train`, `test`, `infer` and `serve`
 with the same flag names, validating types and defaults as the JAX package;
-`--device` defaults to CUDA. The flags of paths not ported yet (`--quantize`,
-`--data-parallel`, `--spatial-parallel`) parse, and the commands raise naming
+`--device` defaults to CUDA. The flags of paths not ported yet
+(`--data-parallel`, `--spatial-parallel`) parse, and the commands raise naming
 their ROADMAP item. `export` is not ported yet.
 """
 
@@ -401,8 +401,8 @@ def test_parser(parser=None):
     parser.add_argument(
         "--quantize", action=boolean_action, default=False,
         help=(
-            "evaluate the int8 quantized inference path (extension of the "
-            "JAX package; not ported yet: the flag is refused)"
+            "evaluate the int8 quantized inference path (the `infer "
+            "--quantize` program, calibrated on the first test batch)"
         ),
     )
     parser.add_argument(
@@ -492,7 +492,10 @@ def infer_parser(parser=None):
     )
     parser.add_argument(
         "--quantize", default=False, action=boolean_action,
-        help="int8 inference: not ported yet (ROADMAP.md Queue 1 item 11), raises",
+        help=(
+            "int8 inference: blocks with >= 128 input channels run s8 x s8 -> "
+            "s32 convs, calibrated on the run's first batch"
+        ),
     )
     parser.add_argument(
         "--crop-height", type=unitary_float,
@@ -637,11 +640,14 @@ def serve_parser(parser=None):
     )
     parser.add_argument(
         "--quantize", default=False, action=boolean_action,
-        help="int8 serving: not ported yet (ROADMAP.md Queue 1 item 11), raises",
+        help="int8 serving (needs --calibration-images for models with int8 blocks)",
     )
     parser.add_argument(
         "--calibration-images", type=Path, default=None,
-        help="int8 calibration images (with --quantize, which is not ported yet)",
+        help=(
+            "directory of representative images to calibrate --quantize on "
+            "(up to max(batch size, 8) of them; kept for hot reloads)"
+        ),
     )
     parser.add_argument(
         "--crop-height", type=unitary_float,

@@ -103,6 +103,31 @@ def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return {"params": flax_params_from_named(named), "batch_stats": batch_stats}
 
 
+# ------------------------------------------------------------ int8 program
+def quant_params_from_jax(qp: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's quantize_conv_stack output (leaves as numpy) ->
+    the port's int8 program parameters (ops/quant.py quantize_conv_stack's
+    layout), CPU tensors: HWIO int8 becomes the int8 conv kernel's packed
+    (Cout, k, k, Cin padded) layout, bf16 HWIO kernels OIHW bf16, and
+    deq / b / scales are carried as they are. The same program then runs
+    through both forwards."""
+    from yogo_tpu_torch.ops.int8_conv import pack_weights
+
+    def oihw_bf16(w):
+        a = np.asarray(w, np.float32).transpose(3, 2, 0, 1)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+    blocks = []
+    for blk in qp["blocks"]:
+        if "w8" in blk:
+            blocks.append({"w8": pack_weights(np.asarray(blk["w8"], np.int8)),
+                           "deq": _tensor(blk["deq"]), "b": _tensor(blk["b"])})
+        else:
+            blocks.append({"w": oihw_bf16(blk["w"]), "b": _tensor(blk["b"])})
+    return {"stem_w": oihw_bf16(qp["stem_w"]), "stem_b": _tensor(qp["stem_b"]),
+            "blocks": blocks, "scales": _tensor(qp["scales"])}
+
+
 # ------------------------------------------------------------ optimizer state
 def optax_state_from_torch(
     stack: torch.nn.Module,
