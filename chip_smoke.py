@@ -74,7 +74,16 @@ Phases (any failure exits non-zero):
      (answers equal the formatter over its int8 Predictor, golden counts
      +-2, a recalibrating hot reload under load). Phase 7 also runs
      `test --quantize` (the int8 conv launches, the stem does not);
- 10. one JSON line per kernel ("kernels"), then the last line
+ 10. ConvNeXt-Small (convnext_phase), full width and depth at 772x1032 on
+     seeded perturbed weights: the card's f32 head of one frame against the
+     CPU's; bf16 `infer --count` at B=64 through Predictor (no stem launch),
+     its time and memory; training steps at B=16 and at B=64 with
+     remat="blocks", the trained state reloaded from .ckpt and .pth (equal
+     heads); `infer --quantize` (71 int8 conv launches a batch), the kernel
+     against its plain version at all 71 sites of that batch and its time
+     at three, int8 against bf16 forward; `serve` and `serve --quantize` at
+     micro-batch 8 equal to the formatter, before and after a reload;
+ 11. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -1453,6 +1462,391 @@ def int8_timing(dev, pred, big, codes_at, block_args):
     return res
 
 
+# the sites timed at B=64 (every one of the 71 is checked at B=4)
+CONVNEXT_TIMED_SITES = ("stage2_block0/pwconv1", "stage2_block0/pwconv2", "down2_conv")
+# the card's f32 head against the CPU's on one frame: the same f32 math,
+# summed in other orders through 36 blocks (3.2e-6 on a head of max 0.98 on
+# the H100); with TF32 on, the fault the gate is for, the gate must fail
+CONVNEXT_F32_RTOL, CONVNEXT_F32_ATOL = 5e-5, 5e-5
+
+
+def perturbed_convnext(model, device, seed=0):
+    """A ConvNeXt-Small of `model` from YOGO.init(seed), then every gamma
+    drawn from N(0.5, 0.2) and every bias from N(0, 0.1), seeded: at
+    init gamma is 1e-6 and each block is the identity."""
+    net = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("gamma"):
+                p.copy_(0.5 + 0.2 * torch.randn(p.shape, generator=gen))
+            elif name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return net.to(device)
+
+
+def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH, train_batches=(16, 64),
+                   train_steps=8, timing=True):
+    """Phase 10: ConvNeXt-Small, the convnext family, at full width and
+    depth on seeded perturbed weights (perturbed_convnext), 2 classes.
+    device_arg None runs on the card; "cpu" rehearses the control flow at
+    a small `hw`. In order:
+      1. f32 parity: the card's raw head of one frame (TF32 off) against
+         the port's CPU f32 forward of the same frame;
+      2. bf16 `infer --count` through Predictor.from_checkpoint (a .ckpt of
+         the weights) at B=`batch`: finite head of the grid's shape, the
+         stem's launch count 0; forward and count-path time, images/s and
+         peak memory;
+      3. training from YOGO.init: `train_steps` bf16 steps on one batch, no flips, at
+         B=train_batches[0] without remat and at B=train_batches[1] with
+         remat="blocks" (finite; the last two losses below the first two); step time, images/s, peak
+         memory; the trained state
+         saved, reloaded through Predictor and counted: the head equal to
+         the in-memory model's; the .pth round trip: the same head;
+      4. int8: `infer --quantize` through predict() on the golden frames as
+         PNGs, one batch calibrated on itself (the int8 conv's launch count
+         set to 0 before and read after: 71 a batch); the kernel against its
+         plain version on the codes entering each of the 71 sites in that
+         batch (B=4; codes and f32 equal); timing at B=`batch` at
+         CONVNEXT_TIMED_SITES (kernel, plain, torch._int_mm + the epilogue,
+         bound) and int8 against bf16 forward_raw, with their device time
+         by kernel;
+      5. `serve` at micro-batch 8, bf16 and `--quantize` (calibrated on the
+         golden frames' PNGs): the answers, before and after a hot reload,
+         equal the host formatter over Predictor.forward of a batch of the
+         server's shape.
+    Returns (numbers for the report, int8 conv launches a batch). Every
+    check raises."""
+    import threading
+
+    from yogo_tpu_torch.infer import Predictor, predict
+    from yogo_tpu_torch.models.yogo import YOGO, no_tf32, resolve_device
+    from yogo_tpu_torch.ops import int8_conv as ic
+    from yogo_tpu_torch.ops import quant_convnext as qc
+    from yogo_tpu_torch.ops.grid import encode_label_grid_np
+    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
+    from yogo_tpu_torch.serve import build_server, format_detections
+    from yogo_tpu_torch.serve_client import ServeClient
+    from yogo_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from yogo_tpu_torch.utils.checkpoint import save_checkpoint
+    from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
+    from yogo_tpu_torch.utils.torch_bridge import save_pth
+    from yogo_tpu_torch.utils.weights import flax_from_state_dict
+
+    dev = resolve_device(device_arg)
+    on_card = dev.type == "cuda"
+    classes = ["cell", "parasite"]
+    model = YOGO.create(hw, 0.0425, 0.0555, len(classes), model_version="convnext_small")
+    bf16 = model.with_compute_dtype(torch.bfloat16)
+    net = perturbed_convnext(model, dev)
+    n = len(imgs4)
+    big = np.concatenate([imgs4] * (batch // n))
+    out = {"params": YOGO.num_params(net), "grid_sx_sy": list(model.grid), "hw": list(hw)}
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_ctx.name)
+    ckpt = tmp / "convnext.ckpt"
+    save_checkpoint(ckpt, model, flax_from_state_dict(net.state_dict()), classes=classes)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+
+    # ------------------------------------------------ 1. f32: card vs CPU
+    x1 = torch.from_numpy(imgs4[:1])
+    got = model.apply(net, x1.to(dev), decode=False).cpu()
+    # the fault the gate is for: the module's own forward with cuDNN's and
+    # cuBLAS's TF32 on (YOGO.apply holds no_tf32)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            got_tf32 = net(x1.to(dev).float()).permute(0, 2, 3, 1).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu_net = perturbed_convnext(model, "cpu")
+    want = f32_head = model.apply(cpu_net, x1, decode=False)
+    del cpu_net
+    err = float((got - want).abs().max())
+    err_tf32 = float((got_tf32 - want).abs().max())
+
+    def within_gate(a):
+        return bool(((a - want).abs() <= CONVNEXT_F32_ATOL + CONVNEXT_F32_RTOL * want.abs()).all())
+
+    out["f32_vs_cpu"] = {"max_abs_err": err, "max_abs_err_tf32_on": err_tf32,
+                         "max_abs_head": float(want.abs().max()),
+                         "rtol": CONVNEXT_F32_RTOL, "atol": CONVNEXT_F32_ATOL}
+    log(f"convnext f32 card vs CPU, one frame: max abs err {err:.3g} with TF32 off, {err_tf32:.3g} with "
+        f"it on, on a head of max {float(want.abs().max()):.3g} (rtol {CONVNEXT_F32_RTOL}, "
+        f"atol {CONVNEXT_F32_ATOL})")
+    if not within_gate(got):
+        raise AssertionError(f"convnext f32 head: the card differs from the CPU by {err}")
+    if on_card and within_gate(got_tf32):
+        raise AssertionError(f"convnext f32 head: the gate does not catch TF32 (max abs err {err_tf32})")
+
+    # ------------------------------------- 2. bf16 infer --count at B=batch
+    reset_peak()
+    STEM_LAUNCHES.clear()
+    pred = Predictor.from_checkpoint(ckpt, half=True, device=dev)
+    ones = torch.ones(batch, dtype=torch.bool)
+    raw = pred.forward_raw(big)
+    counts = pred.count(raw, ones).cpu().tolist()
+    sync()
+    sx, sy = model.grid
+    if raw.shape != (batch, sy, sx, 5 + len(classes)) or not torch.isfinite(raw.float()).all():
+        raise AssertionError(f"convnext bf16 head {tuple(raw.shape)} {raw.dtype}, finite "
+                             f"{bool(torch.isfinite(raw.float()).all())}")
+    if dict(STEM_LAUNCHES):
+        raise AssertionError(f"convnext launched the stem kernel: {dict(STEM_LAUNCHES)}")
+    out["bf16"] = {"batch": batch, "head_dtype": str(raw.dtype), "counts": counts,
+                   "stem_launches": sum(STEM_LAUNCHES.values())}
+    del raw
+    if timing:
+        x_dev = torch.from_numpy(big).to(dev)
+        fwd_ms = cuda_ms(lambda: pred.forward_raw(x_dev), 3, per_rep=3, warmup=1)
+        times = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            pred.count(pred.forward_raw(big), ones)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["bf16"].update(forward_raw_ms=fwd_ms, forward_img_per_s=batch / fwd_ms * 1e3,
+                           count_path_host={"img_per_s": len(times) * batch / (sum(times) / 1e3),
+                                            "batch_ms_median": statistics.median(times)},
+                           max_memory_allocated_gib=peak_gib())
+        del x_dev
+    log(f"convnext bf16 infer --count B={batch}: " + json.dumps(out["bf16"]))
+    del pred
+
+    # ------------------------------------------------------ 3. training
+    grids4 = np.stack([encode_label_grid_np(b, sx, sy) for b in boxes4])
+    loss_kw = dict(no_obj_weight=df.NO_OBJ_WEIGHT, iou_weight=df.IOU_WEIGHT,
+                   classify_weight=df.CLASSIFY_WEIGHT, label_smoothing=df.LABEL_SMOOTHING)
+    out["train"] = {}
+    for bsz, remat in zip(train_batches, ("none", "blocks")):
+        reset_peak()
+        tnet = model.init(torch.Generator().manual_seed(2), device=dev)
+        optimizer, scheduler, _ = make_optimizer(tnet.parameters(), df.LEARNING_RATE, df.WEIGHT_DECAY,
+                                                 df.DECAY_FACTOR, 100)
+        state = TrainState(tnet, optimizer, scheduler)
+        reps = -(-bsz // n)
+        xs = torch.from_numpy(np.concatenate([imgs4] * reps)[:bsz]).to(dev)
+        labs = torch.from_numpy(np.concatenate([grids4] * reps)[:bsz]).to(dev)
+        mask = torch.ones(bsz, device=dev)
+        step = make_train_step(bf16, loss_kw, augment=False, remat=remat)
+        gen = torch.Generator().manual_seed(1)
+        losses, ms = [], []
+        for i in range(train_steps):
+            if on_card:
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+            losses.append(step(state, xs, labs, mask, gen)[1])
+            if on_card:
+                b.record()
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+        losses = torch.stack(losses).cpu().tolist()
+        # Adam's first steps move every weight by ~lr, gamma (1e-6 at init)
+        # by 300x: the loss falls over the steps, not at each
+        if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+            raise AssertionError(f"convnext train B={bsz} remat={remat}: losses {losses}")
+        rec = {"batch": bsz, "remat": remat, "steps": train_steps, "losses": losses,
+               "max_memory_allocated_gib": peak_gib()}
+        if ms:
+            step_ms = statistics.median(ms[2:])  # the first steps build and warm up
+            rec.update(step_ms=step_ms, step_ms_all=ms, img_per_s=bsz / step_ms * 1e3)
+        out["train"][f"b{bsz}_{remat}"] = rec
+        log(f"convnext train bf16 B={bsz} remat={remat} ({smi}): " + json.dumps(rec))
+        del optimizer, scheduler, state, xs, labs
+    # the last trained state through a .ckpt and a .pth into Predictor
+    want = Predictor(bf16, tnet).forward_raw(imgs4)
+    variables = flax_from_state_dict(tnet.state_dict())
+    save_checkpoint(tmp / "trained.ckpt", model, variables, classes=classes)
+    save_pth(tmp / "trained.pth", model, variables, classes=classes)
+    del tnet
+    for path in (tmp / "trained.ckpt", tmp / "trained.pth"):
+        re = Predictor.from_checkpoint(path, half=True, device=dev)
+        got = re.forward_raw(imgs4)
+        if not torch.equal(got, want):
+            raise AssertionError(f"convnext {path.suffix} reload: head differs by "
+                                 f"{float((got.float() - want.float()).abs().max())}")
+        out[f"reload_{path.suffix[1:]}"] = {
+            "bytes": path.stat().st_size, "head_equal": True,
+            "counts": re.count(got, torch.ones(n, dtype=torch.bool)).cpu().tolist()}
+        del re, got
+    log("convnext trained state: .ckpt and .pth reloaded through Predictor, heads equal the "
+        "in-memory model's: " + json.dumps({k: out[k] for k in ("reload_ckpt", "reload_pth")}))
+
+    # --------------------------------------------------------- 4. int8
+    img_dir = tmp / "golden"
+    img_dir.mkdir()
+    for i, f in enumerate(imgs4):
+        write_png_gray(img_dir / f"frame_{i}.png", f[0])
+    reset_peak()
+    ic.LAUNCHES.clear()
+    preds = predict(ckpt, path_to_images=img_dir, quantize=True, batch_size=n,
+                    return_full_predictions=True, device=dev)
+    launches = ic.LAUNCHES["int8_conv"]  # counts kernel launches: none on the CPU
+    if (on_card and launches != len(qc.quant_sites())) or not np.isfinite(preds).all():
+        raise AssertionError(f"convnext infer --quantize: {launches} int8 conv launches for one batch "
+                             f"(expected {len(qc.quant_sites())}), finite {bool(np.isfinite(preds).all())}")
+    out["int8"] = {"launches_one_batch": launches}
+    del preds
+
+    pred8 = Predictor.from_checkpoint(ckpt, device=dev, quantize=True, calib=[imgs4])
+    qp = pred8.qp
+    record = []
+    raw8 = qc.quantized_convnext_forward(model, qp, torch.from_numpy(imgs4).to(dev), decode=False,
+                                         record=record)[:1].cpu()
+    # the int8 head of frame 0 within int8 noise of its f32 head (the
+    # bound of tests/test_torch_quant_convnext.py for JAX's own program)
+    noise = float((raw8 - f32_head).abs().max())
+    out["int8"]["vs_f32_head"] = {"max_abs_err": noise, "max_abs_head": float(f32_head.abs().max())}
+    log("convnext int8 head of frame 0 against its f32 head: " + json.dumps(out["int8"]["vs_f32_head"]))
+    if not 0 < noise < 0.1 * float(f32_head.abs().max()):
+        raise AssertionError(f"convnext int8 head of frame 0 differs from the f32 head by {noise}")
+    if len(record) != len(qc.quant_sites()):
+        raise AssertionError(f"convnext int8 forward recorded {len(record)} sites")
+    codes4 = dict(zip((k for k, _ in qc.quant_sites()), record))
+    del record
+
+    def site_args(key, q):
+        blk = qp["int8"][key]
+        return (q.contiguous(), blk["w8"], blk["deq"], blk["b"]), dict(
+            cin=q.shape[-1], stride=2 if key.startswith("down") else 1, padding=0, act=None)
+
+    # every site of the batch the main path ran, on the codes that entered it
+    errs, shapes = {}, set()
+    for key, q in codes4.items():
+        args, kw = site_args(key, q)
+        got, want = ic.int8_conv(*args, **kw), ic.int8_conv_reference(*args, **kw)
+        sync()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"int8 conv at {key} B={n}: differs from its plain version by "
+                                 f"{float((got - want).abs().max())}")
+        errs[key] = float((got - want).abs().max())
+        shapes.add((tuple(q.shape), tuple(args[1].shape), kw["stride"]))
+        del got, want
+    out["int8"].update(max_abs_err=max(errs.values()), sites_checked=len(errs), site_shapes_checked=len(shapes))
+    log(f"convnext int8_conv vs plain at B={n}: max abs err {out['int8']['max_abs_err']} at {len(errs)} sites, "
+        f"{len(shapes)} distinct (codes, weights, stride) shapes")
+
+    if timing:
+        kind = torch.cuda.get_device_name(0)
+        out["int8"]["sites"] = {}
+        for key in CONVNEXT_TIMED_SITES:
+            q = codes4[key].repeat(batch // n, 1, 1, 1).contiguous()
+            args, kw = site_args(key, q)
+            w8, deq, bias = args[1:]
+            cout, k, _, cin = w8.shape
+            y = ic.int8_conv(*args, **kw)
+            m = y.shape[0] * y.shape[1] * y.shape[2]
+            n_ops = 2 * m * cout * k * k * cin
+            n_bytes = q.numel() + w8.numel() + 8 * cout + y.numel() * 4
+            bound = {"bytes": n_bytes / mem_rate(kind) * 1e3, "operations": n_ops / int8_rate(kind) * 1e3}
+            # the library route: the codes as (M, K) rows (a 2x2 stride-2
+            # VALID window is a patch: crop to even, reshape and permute),
+            # torch._int_mm, then the epilogue in torch ops
+            w_mm = w8.reshape(cout, -1).t()  # (K, N), (dy, dx, c) order
+
+            def rows(q=q, k=k):
+                if k == 1:
+                    return q.reshape(-1, q.shape[-1])
+                b_, h_, w_, c_ = q.shape
+                p = q[:, : h_ // 2 * 2, : w_ // 2 * 2].reshape(b_, h_ // 2, 2, w_ // 2, 2, c_)
+                return p.permute(0, 1, 3, 2, 4, 5).reshape(-1, 4 * c_)
+
+            def library(w_mm=w_mm, deq=deq, bias=bias, rows=rows):
+                return torch._int_mm(rows(), w_mm).float() * deq + bias
+
+            lib = library().reshape(y.shape)
+            if not torch.equal(lib, y):
+                raise AssertionError(f"int8 conv at {key}: the library route differs from the kernel")
+            rec = {"shape": {"in": list(q.shape), "out": list(y.shape)},
+                   "ms": cuda_ms(lambda args=args, kw=kw: ic.int8_conv(*args, **kw), 5),
+                   "plain_ms": cuda_ms(lambda args=args, kw=kw: ic.int8_conv_reference(*args, **kw), 3,
+                                       per_rep=1, warmup=1),
+                   "library_ms": cuda_ms(library, 5),
+                   "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+                   "bytes": n_bytes, "operations": n_ops}
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            out["int8"]["sites"][key] = rec
+            del q, y, lib
+        x_dev = torch.from_numpy(big).to(dev)
+        bf = Predictor(bf16, pred8.stack)
+        reset_peak()
+        out["int8"]["forward_raw_ms"] = {"int8": cuda_ms(lambda: pred8.forward_raw(x_dev), 3, per_rep=3,
+                                                         warmup=1),
+                                         "bf16": cuda_ms(lambda: bf.forward_raw(x_dev), 3, per_rep=3,
+                                                         warmup=1)}
+        out["int8"]["max_memory_allocated_gib"] = peak_gib()
+        # device time by kernel: where a ConvNeXt forward spends it
+        out["int8"]["profile"] = forward_profile({"bf16": lambda: bf.forward_raw(x_dev),
+                                                  "int8": lambda: pred8.forward_raw(x_dev)},
+                                                 reps=2, top=15)
+        del x_dev, bf
+    log(f"convnext int8 ({smi}): " + json.dumps(out["int8"]))
+    del pred8, qp, codes4
+
+    # --------------------------------------------------------- 5. serve
+    sb = 8
+    x = np.zeros((sb, *imgs4.shape[1:]), np.uint8)
+    x[:n] = imgs4
+    thr = {"obj_thresh": 0.5, "iou_thresh": 0.5, "min_class_confidence_threshold": 0.0}
+
+    def serve_once(**kw):
+        """A server at micro-batch `sb` answers the golden frames in one
+        request and, after a hot reload, again; both answers must equal the
+        host formatter over the first served Predictor.forward of a batch
+        of the server's shape. Returns (record, int8 conv launches from
+        start-up to the last answer)."""
+        ic.LAUNCHES.clear()
+        srv = build_server(ckpt, port=0, device=dev, batch_size=sb, linger_ms=5.0, **kw)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            served = srv.yogo_state["predictor"]
+            with ServeClient("127.0.0.1", srv.server_address[1], timeout=120) as c:
+                t0 = time.perf_counter()
+                got = c.predict_many(imgs4)
+                one_request_ms = (time.perf_counter() - t0) * 1e3
+                if not srv.reload_checkpoint()["ok"]:
+                    raise AssertionError(f"convnext serve {kw}: the reload failed")
+                got_reloaded = c.predict_many(imgs4)
+            served_launches = ic.LAUNCHES["int8_conv"]
+        finally:
+            srv.shutdown()
+            srv.yogo_batcher.shutdown()
+            srv.server_close()
+            th.join(timeout=30)
+        want = [format_detections(d, classes, **thr) for d in served.forward(x)[:n].cpu().numpy()]
+        if got != want or got_reloaded != want:
+            raise AssertionError(f"convnext serve {kw}: answers differ from the host formatter over "
+                                 f"Predictor.forward (before the reload {got == want}, after {got_reloaded == want})")
+        return {"batch": sb, "answers_equal_formatter": True, "reloaded_answers_equal": True,
+                "per_image": [sum(r["counts"].values()) for r in got],
+                "one_request_of_4_frames_ms": one_request_ms}, served_launches
+
+    out["serve"], _ = serve_once(half=True)
+    log("convnext serve B=8 bf16: " + json.dumps(out["serve"]))
+    out["serve_quantize"], serve_launches = serve_once(quantize=True, calibration_images=img_dir)
+    # 71 a dispatch: start-up's warm-up and the two answers (a reload
+    # recalibrates in f32 and launches none)
+    if on_card and (serve_launches == 0 or serve_launches % len(qc.quant_sites())):
+        raise AssertionError(f"convnext serve --quantize: {serve_launches} int8 conv launches")
+    out["serve_quantize"]["int8_conv_launches"] = serve_launches
+    log("convnext serve B=8 --quantize: " + json.dumps(out["serve_quantize"]))
+    tmp_ctx.cleanup()
+    return out, launches
+
+
 def main() -> int:
     # ------------------------------------------------------------ 1. device
     if not torch.cuda.is_available():
@@ -1697,7 +2091,11 @@ def main() -> int:
         "count_path_img_per_s": {f"{p}_{src}": (t8 if p == "int8" else ceiling)[f"count_path_{src}"]["img_per_s"]
                                  for p in ("int8", "bf16") for src in ("host", "device")}}))
 
-    # ----------------------------------------------------------- 10. report
+    # ---------------------------------------------------------- 10. convnext
+    torch.cuda.empty_cache()
+    report["convnext"], convnext_int8_launches = convnext_phase(None, imgs4, boxes4, smi)
+
+    # ----------------------------------------------------------- 11. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -1710,6 +2108,7 @@ def main() -> int:
             "launches_cli_by_command": cli_stem[f"stem_{layout}"],
             "launches_serve_by_batch": {f"b{b}": n.get(f"stem_{layout}", 0)
                                         for b, n in serve_launches.items()},
+            "launches_convnext_count_path": report["convnext"]["bf16"]["stem_launches"],
             "max_abs_err": max_err[layout],
             "ms": timing[layout]["ms"],
             "plain_ms": timing[layout]["plain_ms"],
@@ -1746,6 +2145,16 @@ def main() -> int:
         "by_block": {k: {key: b[key] for key in ("ms", "plain_ms", "library_ms", "cudnn_bf16_conv_ms",
                                                    "bound_ms", "bound_by", "bound_share")}
                      for k, b in blocks.items()},
+        # phase 10: ConvNeXt-Small's int8 program; checked at all its sites
+        # (B=4), timed at three (B=64)
+        "launches_convnext_infer_quantize": convnext_int8_launches,
+        "launches_convnext_serve_quantize_b8": report["convnext"]["serve_quantize"]["int8_conv_launches"],
+        "max_abs_err_convnext": report["convnext"]["int8"]["max_abs_err"],
+        "convnext_sites_checked": report["convnext"]["int8"]["sites_checked"],
+        "convnext_site_shapes_checked": report["convnext"]["int8"]["site_shapes_checked"],
+        "by_convnext_site": {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                           "bound_by", "bound_share")}
+                             for k, v in report["convnext"]["int8"]["sites"].items()},
     })
     report["kernels"] = rows
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -4,7 +4,8 @@ a `.pth` written by either package loads in the other with every tensor
 EQUAL (bit for bit) to the JAX package's load_checkpoint of the `.ckpt` it
 came from, the model configuration and metadata equal; `load_any` reads a
 `.pth` into the same Predictor head as the `.ckpt` (exact: same weights,
-same CPU ops); ConvNeXt `.pth` keys raise naming their ROADMAP item."""
+same CPU ops); ConvNeXt's timm keys too (tests/test_torch_convnext.py
+holds them against the JAX package's map)."""
 
 from pathlib import Path
 
@@ -95,14 +96,24 @@ def test_load_any_pth_gives_the_ckpt_s_head(tmp_path):
 
 
 def test_convnext_pth_raises_naming_its_roadmap_item(tmp_path):
+    """Named when ConvNeXt .pth interop raised naming ROADMAP item 12; the
+    item is done. Now: a convnext .pth written by the port is read by the
+    JAX package with every tensor equal, and one missing a block's tensor
+    raises naming the key."""
     from yogo_tpu_torch.models.yogo import YOGO
+    from yogo_tpu_torch.utils.weights import flax_from_state_dict
 
     model = YOGO.create((96, 128), 0.1, 0.1, 2, model_version="convnext_small")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        save_pth(tmp_path / "c.pth", model, {"params": {}})
-    sd = {"img_size": torch.tensor([96, 128]), "anchor_w": torch.tensor(0.1),
-          "anchor_h": torch.tensor(0.1), "num_classes": torch.tensor(2),
-          "model.0.0.weight": torch.zeros(96, 1, 4, 4)}
-    torch.save({"model_state_dict": sd, "model_version": "convnext_small"}, tmp_path / "c.pth")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_any(tmp_path / "c.pth")
+    net = model.init(torch.Generator().manual_seed(0), device="cpu")
+    variables = {"params": flax_from_state_dict(net.state_dict())["params"]}
+    save_pth(tmp_path / "c.pth", model, variables, classes=["a", "b"])
+    jm, jv, meta = jax_load_pth(tmp_path / "c.pth")
+    assert jm.model_version == "convnext_small" and meta["class_names"] == ["a", "b"]
+    _assert_same_variables(variables, jv)
+    _, tv, _ = load_any(tmp_path / "c.pth")
+    _assert_same_variables(variables, tv)
+    payload = torch.load(tmp_path / "c.pth", weights_only=True)
+    del payload["model_state_dict"]["model.1.2.blocks.26.mlp.fc1.weight"]
+    torch.save(payload, tmp_path / "cut.pth")
+    with pytest.raises(KeyError, match="blocks.26.mlp.fc1.weight"):
+        load_any(tmp_path / "cut.pth")

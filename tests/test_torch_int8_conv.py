@@ -20,7 +20,9 @@ import torch
 from yogo_tpu_torch.ops import int8_conv as ic
 
 # (B, H, W, cin, cout, kernel, stride): odd H and W, C_in not a multiple of
-# 32 (half_filters' 8 / 24), wide (256), C_out 7 (a quantized head) and 40
+# 32 (half_filters' 8 / 24), wide (256), C_out 7 (a quantized head) and 40;
+# ConvNeXt's 2x2 stride-2 VALID downsample (an odd H / W drops its last
+# row / column), padding (kernel - 1) // 2 throughout
 CASES = [
     (2, 9, 11, 8, 16, 3, 1),
     (2, 9, 11, 24, 7, 3, 2),
@@ -28,6 +30,8 @@ CASES = [
     (2, 6, 9, 256, 8, 1, 1),
     (1, 5, 6, 128, 130, 3, 1),
     (3, 3, 5, 24, 7, 3, 2),
+    (2, 9, 11, 64, 48, 2, 2),
+    (1, 8, 12, 192, 384, 2, 2),
 ]
 
 
@@ -172,12 +176,19 @@ def cuda():
         pytest.skip("needs a CUDA GPU")
 
 
-# the base_model blocks 4-6 at a reduced size, ragged M tiles, odd shapes
+# the base_model blocks 4-6 at a reduced size, ragged M tiles, odd shapes;
+# ConvNeXt-Small's site shapes at a reduced size (C_in and C_out up to
+# 3,072, a ragged N tile at C_out 96, the 2x2 stride-2 downsample)
 CUDA_CASES = CASES + [
     (4, 97, 129, 128, 128, 3, 1),
     (4, 193, 258, 128, 128, 3, 2),
     (1, 3, 5, 8, 8, 3, 2),
     (2, 17, 33, 384, 384, 3, 1),
+    (2, 24, 32, 384, 1536, 1, 1),
+    (2, 12, 16, 3072, 768, 1, 1),
+    (2, 6, 8, 768, 3072, 1, 1),
+    (2, 24, 32, 384, 96, 1, 1),
+    (2, 48, 65, 384, 768, 2, 2),
 ]
 
 

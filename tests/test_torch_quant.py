@@ -215,11 +215,15 @@ def test_quantize_conv_stack_argument_checks_and_every_block_skipped():
         qp = tq.quantize_conv_stack(tm, v, never(), skip_blocks=skip, device="cpu")
     assert not any("w8" in b for b in qp["blocks"]) and not qp["scales"].any()
     assert tq.family_quant_plan(tm, v, device="cpu")[3] is True
+    # ConvNeXt is no conv stack: its plan is ops/quant_convnext.py's
+    # (tests/test_torch_quant_convnext.py), and the conv-stack fold refuses it
+    from yogo_tpu_torch.ops import quant_convnext
+
     cn = YOGO.create(HW, 0.08, 0.1, 2, model_version="convnext_small")
-    for fn in (lambda: tq.family_quant_plan(cn, {}), lambda: tq.family_quant_forward(cn),
-               lambda: tq.fold_conv_stack(cn.defn, {})):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+    assert tq.family_quant_forward(cn) is quant_convnext.quantized_convnext_forward
+    assert tq.family_quant_plan(cn, {}, device="cpu")[2:] == (71, False)
+    with pytest.raises(NotImplementedError, match="quant_convnext"):
+        tq.fold_conv_stack(cn.defn, {})
 
 
 # ------------------------------------------- the forward, JAX's program in

@@ -379,9 +379,15 @@ def test_argument_checks():
         make_train_step(model, KW, remat="everything")
     with pytest.raises(ValueError, match="accumulate"):
         make_train_step(model, KW, accumulate=0)
+    # ConvNeXt's int8 program is the eval step's too
+    from yogo_tpu_torch.ops.quant_convnext import quantize_convnext
+
     cn = YOGO.create(HW, 0.08, 0.1, NUM_CLASSES, model_version="convnext_small")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_eval_step(cn, KW, quant_params=object())
+    net = cn.init(torch.Generator().manual_seed(0), device="cpu")
+    cimgs, clabels, cmask = fake_batch(cn.grid, b=2)
+    qp = quantize_convnext(cn, net, [cimgs], device="cpu")
+    loss, preds = make_eval_step(cn, KW, quant_params=qp)(None, *tensors(cimgs, clabels, cmask))
+    assert np.isfinite(float(loss)) and preds.shape == (2, 5 + NUM_CLASSES, cn.Sy, cn.Sx)
     imgs, labels, mask = fake_batch(model.grid)
     with pytest.raises(ValueError, match="stacked micro-batches"):
         make_train_step(model, KW, accumulate=2)(fresh_port_state(model), *tensors(imgs, labels, mask))

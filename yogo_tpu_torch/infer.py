@@ -35,8 +35,10 @@ import torch
 
 from yogo_tpu_torch.data.image_source import get_dataset
 from yogo_tpu_torch.data.loader import choose_dataloader_num_workers
-from yogo_tpu_torch.models.yogo import YOGO, ConvStack, resolve_device
-from yogo_tpu_torch.ops.quant import family_quant_plan, quantized_forward
+from torch import nn
+
+from yogo_tpu_torch.models.yogo import YOGO, resolve_device
+from yogo_tpu_torch.ops.quant import family_quant_forward, family_quant_plan
 from yogo_tpu_torch.ops.postprocess import (
     INFER_COUNT_MAX_DETECTIONS,
     count_cells_for_formatted_preds,
@@ -59,8 +61,8 @@ def load_model(
     channels_last: bool = True,
     vertical_crop_height: Optional[float] = None,
 ):
-    """A .ckpt or .pth -> (model config, ConvStack on `device` (default
-    CUDA) in eval mode, meta). `half` computes in bf16, which runs block 0
+    """A .ckpt or .pth -> (model config, the architecture's module on
+    `device` (default CUDA) in eval mode, meta). `half` computes in bf16, which runs block 0
     as the fused stem kernel on uint8 input; `vertical_crop_height` resizes
     the model's grid to round(fraction * height) rows (the fully
     convolutional crop of yogo/model.py:236-265)."""
@@ -79,13 +81,14 @@ class Predictor:
     `forward_raw` (uint8 batch -> NHWC head), `count` (head + image mask ->
     per-class counts on the device), `forward` (decoded predictions) and
     the candidate fetch (`candidates`, `decode_slice`). With `qp` (the int8
-    program of ops/quant.quantize_conv_stack, on the stack's device) both
-    forwards run ops/quant.quantized_forward, whose head is f32."""
+    program of the family's ops/quant.family_quant_plan, on the module's
+    device) both forwards run the family's quantized forward, whose head
+    is f32."""
 
     def __init__(
         self,
         model: YOGO,
-        stack: ConvStack,
+        stack: nn.Module,
         *,
         obj_thresh: float = 0.5,
         iou_thresh: float = 0.5,
@@ -136,14 +139,16 @@ class Predictor:
     def forward_raw(self, imgs) -> torch.Tensor:
         """(B, C, H, W) batch -> undecoded NHWC head (B, Sy, Sx, 5+C)."""
         if self.qp is not None:
-            return quantized_forward(self.model, self.qp, self.to_device(imgs), decode=False)
+            fwd = family_quant_forward(self.model)
+            return fwd(self.model, self.qp, self.to_device(imgs), decode=False)
         return self.model.apply(self.stack, self.to_device(imgs), decode=False)
 
     def forward(self, imgs) -> torch.Tensor:
         """(B, C, H, W) batch -> decoded (B, 5+C, Sy, Sx) f32, class
         softmax applied."""
         if self.qp is not None:
-            return quantized_forward(self.model, self.qp, self.to_device(imgs), inference=True)
+            fwd = family_quant_forward(self.model)
+            return fwd(self.model, self.qp, self.to_device(imgs), inference=True)
         return self.model.apply(self.stack, self.to_device(imgs), inference=True)
 
     def count(self, raw: torch.Tensor, image_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -188,7 +193,7 @@ def needs_calibration(model: YOGO) -> bool:
     return not family_quant_plan(model, None)[3]
 
 
-def quantize_stack(model: YOGO, stack: ConvStack, calib) -> dict:
+def quantize_stack(model: YOGO, stack: nn.Module, calib) -> dict:
     """The int8 program of a loaded stack, on the stack's device,
     calibrated on `calib` (a list of NCHW batches), which may be empty only
     when the program needs no calibration."""

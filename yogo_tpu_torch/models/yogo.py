@@ -9,6 +9,10 @@
     flax, not the module's mode: BN batch statistics with flax's running
     update (biased variance), channel dropout from an explicit generator,
     and per-block or whole-stack activation checkpointing;
+  - `ConvNeXtSmall` / `ConvNeXtBlock`: the convnext family (models/yogo.py
+    of the JAX package, flax parameter names), its residual stream in
+    NHWC float32 whatever the compute dtype, with flax's LayerNorm
+    (`layer_norm`);
   - `decode_predictions`: the YOLO9000 direct-location decode.
 
 Block 0 of a canonical conv stack runs as the fused CUDA stem kernel
@@ -18,7 +22,7 @@ the JAX package's YOGO_PALLAS_STEM.
 
 Parameters stay float32; convs run in the compute dtype (weights cast per
 call, as flax's param_dtype/dtype do). A float32 forward on CUDA turns
-cuDNN's TF32 off for its duration, so float32 means float32.
+TF32 off (cuDNN's and cuBLAS's) for its duration, so float32 means float32.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 import threading
 from dataclasses import dataclass
 from typing import Iterable, Optional, Tuple
@@ -41,6 +46,9 @@ from yogo_tpu_torch.ops.stem import STEM_CHANNELS, fold_stem_params, fused_stem_
 
 LEAKY_SLOPE = 0.01
 REMAT_MODES = ("none", "blocks", "full")
+LN_EPS = 1e-6
+CONVNEXT_DEPTHS = (3, 3, 27, 3)
+CONVNEXT_DIMS = (96, 192, 384, 768)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -210,6 +218,150 @@ class ConvStack(nn.Module):
         )
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = LN_EPS) -> torch.Tensor:
+    """flax's nn.LayerNorm over the last axis, in float32 whatever x's
+    dtype (flax without `dtype` returns float32 from bf16 input and f32
+    parameters): the fast variance max(0, E[x^2] - E[x]^2) and
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, as flax orders it.
+    F.layer_norm computes the variance another way."""
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mean * mean, 0.0)
+    return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+class LayerNorm(nn.Module):
+    """Parameters of one LayerNorm over the channels (flax's scale / bias
+    are weight / bias); the forward is `layer_norm`."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias)
+
+
+def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Conv(dtype=dtype) on an NHWC tensor: input, kernel and bias
+    cast to `dtype`, the conv run on the channels_last NCHW view, NHWC out
+    in `dtype` (contiguous)."""
+    y = F.conv2d(
+        x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+        conv.stride, conv.padding, conv.dilation, conv.groups,
+    )
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _linear(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Dense(dtype=dtype) over the last axis."""
+    return F.linear(x.to(dtype), fc.weight.to(dtype), fc.bias.to(dtype))
+
+
+class ConvNeXtBlock(nn.Module):
+    """One ConvNeXt block (yogo_tpu/models/yogo.py ConvNeXtBlock): 7x7
+    depthwise conv, LayerNorm, Dense 4x, exact-erf GELU, Dense back, the
+    per-channel `gamma` (1e-6 at init) and the residual. NHWC in, NHWC
+    float32 out: the LayerNorm returns float32, so in a bf16 model only the
+    convs and Dense layers compute in bf16."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = LayerNorm(dim)
+        self.pwconv1 = nn.Linear(dim, 4 * dim)
+        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        h = self.norm(_conv_nhwc(x, self.dwconv, dtype))
+        h = F.gelu(_linear(h, self.pwconv1, dtype), approximate="none")
+        return x + self.gamma * _linear(h, self.pwconv2, dtype)
+
+
+class ConvNeXtSmall(nn.Module):
+    """ConvNeXt-Small trunk + YOGO format head (yogo_tpu/models/yogo.py
+    ConvNeXtSmall; reference: yogo/model_defns.py:533-558, through timm):
+    a 4x4 stride-4 patchify stem + LayerNorm, four stages of ConvNeXt
+    blocks with a LayerNorm + 2x2 stride-2 conv between them, a 1x1 conv to
+    5+C and a 4x4 stride-4 transpose conv. Module names follow the flax
+    tree (utils/weights.py maps them one to one). The compute dtype is the
+    input's: YOGO.apply casts the input to it.
+
+    There is no BatchNorm and no dropout: `train`, `bn_frozen` and
+    `generator` are accepted and change nothing, as in flax. remat="blocks"
+    checkpoints each ConvNeXtBlock, "full" the whole forward. (In the JAX
+    package "blocks" saves the activations named `yogo_block`, which this
+    family does not name, so there it recomputes as much as "full";
+    recomputation changes memory, never values.)"""
+
+    def __init__(self, num_outputs: int, in_channels: int = 1,
+                 depths: Tuple[int, ...] = CONVNEXT_DEPTHS,
+                 dims: Tuple[int, ...] = CONVNEXT_DIMS):
+        super().__init__()
+        self.depths, self.dims = tuple(depths), tuple(dims)
+        self.stem_conv = nn.Conv2d(in_channels, dims[0], 4, stride=4)
+        self.stem_norm = LayerNorm(dims[0])
+        for s, (depth, dim) in enumerate(zip(self.depths, self.dims)):
+            if s > 0:
+                self.add_module(f"down{s}_norm", LayerNorm(dims[s - 1]))
+                self.add_module(f"down{s}_conv", nn.Conv2d(dims[s - 1], dim, 2, stride=2))
+            for b in range(depth):
+                self.add_module(f"stage{s}_block{b}", ConvNeXtBlock(dim))
+        self.format_conv = nn.Conv2d(dims[-1], num_outputs, 1)
+        self.format_up = nn.ConvTranspose2d(num_outputs, num_outputs, 4, stride=4)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        start_block: int = 0,
+        *,
+        train: bool = False,
+        bn_frozen: bool = False,
+        generator: Optional[torch.Generator] = None,
+        remat: str = "none",
+    ) -> torch.Tensor:
+        """(B, C, H, W) in the compute dtype -> (B, 5+C, Sy, Sx) head
+        logits in the compute dtype (a channels_last view)."""
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
+        if start_block:
+            raise ValueError("the convnext family has no fused stem to start after")
+        del train, bn_frozen, generator  # no BN, no dropout
+        recompute = remat != "none" and torch.is_grad_enabled()
+        if recompute and remat == "full":
+            return checkpoint(self._forward, x, "none", use_reentrant=False)
+        return self._forward(x, "blocks" if recompute else "none")
+
+    def _forward(self, x: torch.Tensor, remat: str) -> torch.Tensor:
+        dtype = x.dtype
+        h = _conv_nhwc(x.permute(0, 2, 3, 1), self.stem_conv, dtype)
+        h = self.stem_norm(h)
+        for s, depth in enumerate(self.depths):
+            if s > 0:
+                h = getattr(self, f"down{s}_norm")(h)
+                h = _conv_nhwc(h, getattr(self, f"down{s}_conv"), dtype)
+            for b in range(depth):
+                block = getattr(self, f"stage{s}_block{b}")
+                if remat == "blocks":
+                    h = checkpoint(block, h, dtype, use_reentrant=False)
+                else:
+                    h = block(h, dtype)
+        h = _conv_nhwc(h, self.format_conv, dtype).permute(0, 3, 1, 2)
+        up = self.format_up
+        out = F.conv_transpose2d(h, up.weight.to(dtype), up.bias.to(dtype), up.stride)
+        return out.contiguous(memory_format=torch.channels_last)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    """flax's default kernel init, lecun_normal: a normal truncated at
+    +-2 standard deviations, scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
 def decode_predictions(
     raw: torch.Tensor,
     cxs: torch.Tensor,
@@ -274,26 +426,28 @@ def decode_rows(
 
 _tf32_lock = threading.Lock()
 _tf32_holders = 0  # threads inside no_tf32 on a CUDA device
-_tf32_saved = True
+_tf32_saved = (True, False)  # cuDNN's, cuBLAS's
 
 
 @contextlib.contextmanager
 def no_tf32(device: torch.device):
-    """cuDNN runs float32 convs in TF32 by default on Ampere and later;
-    the float32 path turns that off for its duration. A training step
-    holds it around forward AND backward: the flag is read when each
-    kernel is chosen, the gradient convs' included. The flag is global, so
-    holders are counted: it stays off while any thread holds it (a server's
-    dispatch and a reload's calibration at once) and comes back when the
-    last one leaves."""
+    """cuDNN runs float32 convs in TF32 by default on Ampere and later
+    (cuBLAS's float32 matmuls only if asked to); the float32 path turns
+    both off for its duration. A training step holds it around forward AND
+    backward: the flags are read when each kernel is chosen, the gradient
+    convs' included. The flags are global, so holders are counted: they
+    stay off while any thread holds them (a server's dispatch and a
+    reload's calibration at once) and come back when the last one leaves."""
     global _tf32_holders, _tf32_saved
     if device.type != "cuda":
         yield
         return
     with _tf32_lock:
         if _tf32_holders == 0:
-            _tf32_saved = torch.backends.cudnn.allow_tf32
+            _tf32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
         _tf32_holders += 1
     try:
         yield
@@ -301,13 +455,15 @@ def no_tf32(device: torch.device):
         with _tf32_lock:
             _tf32_holders -= 1
             if _tf32_holders == 0:
-                torch.backends.cudnn.allow_tf32 = _tf32_saved
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _tf32_saved
 
 
 @dataclass(frozen=True)
 class YOGO:
     """Static model configuration + functional forward (mirrors
-    yogo_tpu.models.yogo.YOGO; the weights live in a ConvStack)."""
+    yogo_tpu.models.yogo.YOGO; the weights live in the module of the
+    architecture's family, a ConvStack or a ConvNeXtSmall)."""
 
     img_size: Tuple[int, int]  # (H, W)
     anchor_w: float
@@ -343,18 +499,24 @@ class YOGO:
     def Sy(self) -> int:
         return self.grid[1]
 
-    def module(self, device=None, channels_last: bool = True) -> ConvStack:
-        """A ConvStack for this architecture in eval mode on `device`
-        (default CUDA), with torch's default init; load weights with
+    def module(self, device=None, channels_last: bool = True) -> nn.Module:
+        """The module of this architecture's family (a ConvStack or a
+        ConvNeXtSmall) in eval mode on `device` (default CUDA), with torch's
+        default init; load weights with
         load_state_dict(state_dict_from_flax(variables)), or start from
         `init`. Whether a forward trains is an argument of `apply`, not the
-        module's mode."""
+        module's mode. `channels_last` picks a conv stack's memory format;
+        the convnext trunk always runs NHWC."""
         defn = self.defn
+        device = resolve_device(device)
+        if defn.family == "convnext":
+            net = ConvNeXtSmall(5 + self.num_classes, self.input_channels)
+            return net.to(device).eval()
         if defn.family != "conv_stack":
-            raise NotImplementedError(f"{defn.family} models are not ported yet")
+            raise NotImplementedError(f"{defn.family} models are not ported")
         stack = ConvStack(defn.blocks, self.input_channels, channels_last)
         fmt = torch.channels_last if channels_last else torch.contiguous_format
-        return stack.to(device=resolve_device(device), memory_format=fmt).eval()
+        return stack.to(device=device, memory_format=fmt).eval()
 
     # ------------------------------------------------------------- param init
     def init(
@@ -362,17 +524,28 @@ class YOGO:
         generator: Optional[torch.Generator] = None,
         device=None,
         channels_last: bool = True,
-    ) -> ConvStack:
-        """A freshly initialised ConvStack on `device` (default CUDA), as
-        yogo_tpu's YOGO.init: conv kernels Kaiming-normal in fan-out mode
-        with the LeakyReLU(0.01) gain (reference: yogo/model.py:79-87),
-        zero biases, BN scale 1 / bias 0, running mean 0 / var 1. The
-        values are drawn on the CPU from `generator` (a CPU generator; None
-        uses torch's global one), so a seed gives the same weights on any
-        device."""
+    ) -> nn.Module:
+        """A freshly initialised module on `device` (default CUDA), as
+        yogo_tpu's YOGO.init. A conv stack: conv kernels Kaiming-normal in
+        fan-out mode with the LeakyReLU(0.01) gain (reference:
+        yogo/model.py:79-87), zero biases, BN scale 1 / bias 0, running mean
+        0 / var 1. ConvNeXt: flax's defaults, lecun_normal kernels (fan-in,
+        truncated normal), zero biases, LayerNorm scale 1 / bias 0, `gamma`
+        1e-6. The values are drawn on the CPU from `generator` (a CPU
+        generator; None uses torch's global one), so a seed gives the same
+        weights on any device."""
         device = resolve_device(device)
         stack = self.module("cpu", channels_last)
         with torch.no_grad():
+            if isinstance(stack, ConvNeXtSmall):
+                for m in stack.modules():
+                    if isinstance(m, (nn.Conv2d, nn.Linear)):
+                        _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                        m.bias.zero_()
+                    elif isinstance(m, nn.ConvTranspose2d):  # (I, O, kh, kw)
+                        _lecun_normal_(m.weight, m.weight.numel() // m.weight.shape[1], generator)
+                        m.bias.zero_()
+                return stack.to(device)
             for m in stack.modules():
                 if isinstance(m, nn.Conv2d):
                     nn.init.kaiming_normal_(
@@ -386,7 +559,7 @@ class YOGO:
         return stack.to(device)
 
     @staticmethod
-    def num_params(stack: ConvStack) -> int:
+    def num_params(stack: nn.Module) -> int:
         return sum(p.numel() for p in stack.parameters())
 
     @staticmethod
@@ -396,14 +569,14 @@ class YOGO:
         return float(torch.sqrt(sum(t.detach().float().pow(2).sum() for t in tensors)))
 
     @staticmethod
-    def grad_norm(stack: ConvStack) -> float:
+    def grad_norm(stack: nn.Module) -> float:
         """Global L2 norm of the gradients held by the stack's parameters
         (reference: yogo/model.py:157-169)."""
         return YOGO.param_norm(p.grad for p in stack.parameters() if p.grad is not None)
 
     # ------------------------------------------------------- fused stem gate
     def stem_kernel_eligible(
-        self, stack: ConvStack, x: torch.Tensor, train: bool = False
+        self, stack: nn.Module, x: torch.Tensor, train: bool = False
     ) -> bool:
         """Whether block 0 runs as the fused stem kernel for this forward
         (the eligibility rules of yogo_tpu YOGO._stem_pallas_mode): not a
@@ -454,7 +627,7 @@ class YOGO:
 
     def apply(
         self,
-        stack: ConvStack,
+        stack: nn.Module,
         x: torch.Tensor,
         *,
         train: bool = False,
@@ -474,9 +647,10 @@ class YOGO:
         stack's running statistics in place (flax returns them as a new
         state; here the module holds them), channel dropout draws from
         `generator`, and `remat` checkpoints activations (see
-        ConvStack.forward). tuning=True freezes BN: it normalises with the
-        running statistics and never updates them, in either mode
-        (reference: yogo/model.py:67-70)."""
+        ConvStack.forward and ConvNeXtSmall). tuning=True freezes BN: it
+        normalises with the running statistics and never updates them, in
+        either mode (reference: yogo/model.py:67-70). ConvNeXt has neither
+        BN nor dropout."""
         x = self._to_nchw(x)
         with contextlib.ExitStack() as ctx:
             ctx.enter_context(no_tf32(x.device))
@@ -529,6 +703,17 @@ class YOGO:
 
     def with_compute_dtype(self, dtype: torch.dtype) -> "YOGO":
         return dataclasses.replace(self, compute_dtype=dtype)
+
+    @classmethod
+    def from_pth(cls, pth_path, inference: bool = False):
+        """Load a reference-format .pth (or native .ckpt) checkpoint ->
+        (model config, flax-layout variables, meta), as the reference
+        classmethod (reference: yogo/model.py:94-147). `inference` is
+        accepted for its signature only: here it is an argument of apply."""
+        del inference
+        from yogo_tpu_torch.utils.checkpoint import load_any
+
+        return load_any(pth_path)
 
     @classmethod
     def create(cls, img_size: Tuple[int, int], anchor_w: float, anchor_h: float,

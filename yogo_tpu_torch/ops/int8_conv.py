@@ -1,9 +1,9 @@
 """s8 x s8 -> s32 convolution with a fused f32 epilogue, for the int8 program.
 
-The JAX package runs the int8 convs of its quantized forward in XLA
-(yogo_tpu/ops/quant.py:609-614); torch has no int8 convolution on CUDA, so
-here they are one hand-written CUDA kernel, csrc/int8_conv.cu. For one
-quantized block it computes
+The JAX package runs the int8 convs and matmuls of its quantized forwards
+in XLA (yogo_tpu/ops/quant.py:609-614, yogo_tpu/ops/quant_convnext.py:416-439);
+torch has no int8 convolution on CUDA, so here they are one hand-written
+CUDA kernel, csrc/int8_conv.cu. For one quantized block or site it computes
 
     acc[b,y,x,o] = sum_{dy,dx,c} q[b, s*y+dy-p, s*x+dx-p, c] * w8[o,dy,dx,c]   (int32, zero padding)
     h            = act(float(acc) * deq[o] + bias[o])                          (f32)
@@ -36,8 +36,9 @@ from yogo_tpu_torch.models.yogo import _activation
 CIN_ALIGN = 32
 # activation -> the kernel's code (csrc/int8_conv.cu Act: LeakyReLU 0.01)
 ACTS = {None: 0, "leaky_relu": 1, "silu": 2}
-# (kernel, stride, padding) of the conv-stack blocks the kernel is built for
-SHAPES = ((3, 1, 1), (3, 2, 1), (1, 1, 0))
+# (kernel, stride, padding) the kernel is built for: the conv-stack blocks,
+# ConvNeXt's Dense layers (1x1) and its 2x2 stride-2 downsamples
+SHAPES = ((3, 1, 1), (3, 2, 1), (1, 1, 0), (2, 2, 0))
 
 # kernel launches by name ("int8_conv"); reset with .clear()
 LAUNCHES: Counter = Counter()

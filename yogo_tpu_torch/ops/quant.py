@@ -1,5 +1,7 @@
 """Post-training int8 quantization for the conv stacks (port of
-yogo_tpu/ops/quant.py; same names, same scheme, same calibration payload).
+yogo_tpu/ops/quant.py; same names, same scheme, same calibration payload),
+and the family dispatch of `--quantize` (the convnext family's program is
+ops/quant_convnext.py).
 
 Scheme (symmetric PTQ):
   - BatchNorm folded into conv weight / bias first (numpy, HWIO, so the
@@ -86,8 +88,8 @@ def fold_conv_stack(defn, variables) -> List[Tuple[ConvSpec, np.ndarray, np.ndar
     `variables`: the flax-layout tree load_any returns, or a ConvStack."""
     if defn.family != "conv_stack":
         raise NotImplementedError(
-            f"int8 quantization of the {defn.family} family waits for its port "
-            "(ROADMAP.md Queue 1 item 12)"
+            f"fold_conv_stack folds conv stacks; the {defn.family} family is "
+            "quantized by ops/quant_convnext.py"
         )
     if isinstance(variables, ConvStack):
         variables = flax_from_state_dict(variables.state_dict())
@@ -351,11 +353,12 @@ def default_skip_blocks(defn, input_channels: int = 1) -> Tuple[int, ...]:
 
 
 def family_quant_forward(model):
-    """The quantized-forward function for this model's family."""
+    """The quantized-forward function for this model's family, with the
+    signature fwd(model, qp, x, *, inference=True, decode=True) for both."""
     if model.defn.family == "convnext":
-        raise NotImplementedError(
-            "int8 ConvNeXt waits for the port of ConvNeXt (ROADMAP.md Queue 1 item 12)"
-        )
+        from yogo_tpu_torch.ops.quant_convnext import quantized_convnext_forward
+
+        return quantized_convnext_forward
     return quantized_forward
 
 
@@ -371,9 +374,13 @@ def family_quant_plan(model, variables, device=None):
           be skipped entirely)
     """
     if model.defn.family == "convnext":
-        raise NotImplementedError(
-            "int8 ConvNeXt waits for the port of ConvNeXt (ROADMAP.md Queue 1 item 12)"
-        )
+        from yogo_tpu_torch.ops.quant_convnext import quant_sites, quantize_convnext
+
+        def build_convnext_qp(calib_batches, act_scales=None):
+            return quantize_convnext(model, variables, calib_batches, act_scales=act_scales, device=device)
+
+        # ConvNeXt-Small always has wide matmuls to quantize
+        return build_convnext_qp, family_quant_forward(model), len(quant_sites()), False
     if model.defn.family != "conv_stack":
         raise ValueError(
             f"--quantize supports conv-stack models only (got {model.defn.family})"
@@ -518,11 +525,16 @@ def _bf16_block(h: torch.Tensor, blk, spec: ConvSpec) -> torch.Tensor:
     return _act(spec.act, _conv(h.to(torch.bfloat16).float(), blk["w"].float(), spec) + b)
 
 
+def requant_nhwc(h: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """f32 h -> int8 codes clip(rint(h / s), -127, 127) (round half to
+    even, as jnp.round), in h's layout."""
+    return torch.div(h.float(), s).round_().clamp_(-127, 127).to(torch.int8)
+
+
 def requant(h: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """The entry requant into a quantized block: f32 NCHW h -> int8 NHWC
-    codes clip(rint(h / s), -127, 127), channels padded with zero codes to
-    the kernel's multiple of 32."""
-    q = torch.div(h.float().permute(0, 2, 3, 1), s).round_().clamp_(-127, 127).to(torch.int8)
+    codes, channels padded with zero codes to the kernel's multiple of 32."""
+    q = requant_nhwc(h.permute(0, 2, 3, 1), s)
     c = q.shape[-1]
     return F.pad(q, (0, padded_channels(c) - c)).contiguous()
 

@@ -10,7 +10,7 @@ per optimizer step from lr to lr/decay_factor, and an elementwise gradient
 clamp to +-clip_value before the optimizer sees the gradients.
 
 Where the JAX step is a pure function of an immutable state, this one
-mutates: the ConvStack holds parameters and BN statistics, the AdamW its
+mutates: the module holds parameters and BN statistics, the AdamW its
 moments, and `step` returns the same TrainState it was given. Randomness
 comes from an explicit torch.Generator that advances with every draw; the
 Trainer reseeds it from (seed, step) before every step, as JAX folds the
@@ -39,7 +39,7 @@ from yogo_tpu_torch.data.prefetch import prefetch_to_device
 from yogo_tpu_torch.data.transforms import random_flips
 from yogo_tpu_torch.losses import yogo_loss
 from yogo_tpu_torch.metrics import DeviceMetrics, Metrics
-from yogo_tpu_torch.models.yogo import REMAT_MODES, YOGO, ConvStack, no_tf32, resolve_device
+from yogo_tpu_torch.models.yogo import REMAT_MODES, YOGO, no_tf32, resolve_device
 from yogo_tpu_torch.ops.quant import family_quant_forward, family_quant_plan
 from yogo_tpu_torch.utils.checkpoint import load_any, restore_opt_state, save_checkpoint
 from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
@@ -55,7 +55,7 @@ COMPONENTS = ("iou_loss", "objectness_loss", "classification_loss")
 
 @dataclass
 class TrainState:
-    stack: ConvStack
+    stack: torch.nn.Module  # the architecture's module (YOGO.module)
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
@@ -113,7 +113,8 @@ def make_optimizer(
     return optimizer, scheduler, host_schedule
 
 
-def _bn_buffers(stack: ConvStack) -> Dict[str, torch.Tensor]:
+def _bn_buffers(stack: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The BN running statistics of a module (none for a model without BN)."""
     return {k: b for k, b in stack.named_buffers() if k.endswith(("running_mean", "running_var"))}
 
 
@@ -212,7 +213,7 @@ def make_eval_step(
     the loss of the eval-mode output with class logits, and the same
     output with softmaxed classes for the metrics.
 
-    quant_params (ops/quant.quantize_conv_stack's program) evaluates the
+    quant_params (the family's int8 program, ops/quant.family_quant_plan) evaluates the
     int8 inference path instead of the float forward - `test --quantize`
     measures PTQ accuracy with the program `infer --quantize` runs (the
     stack argument is then unused). The batch is cast to f32 first, as the
@@ -222,7 +223,7 @@ def make_eval_step(
 
     quant_forward = family_quant_forward(model) if quant_params is not None else None
 
-    def step(stack: ConvStack, imgs, labels, img_mask: Optional[torch.Tensor]):
+    def step(stack: torch.nn.Module, imgs, labels, img_mask: Optional[torch.Tensor]):
         if quant_forward is not None:
             out_train = quant_forward(model, quant_params, imgs.float(), inference=False)
         else:
@@ -815,8 +816,8 @@ class Trainer:
         """Full test pass: loss + Metrics over the test loader. Returns the
         reference's metric tuple (reference: yogo/train.py:446-528).
 
-        variables: the flax-layout tree load_any returns (a ConvStack is
-        then built on `device`, default CUDA), or a ConvStack, which is
+        variables: the flax-layout tree load_any returns (the module is
+        then built on `device`, default CUDA), or a module, which is
         used where it lies.
 
         quantize=True (extension) evaluates the int8 PTQ inference path
@@ -837,7 +838,7 @@ class Trainer:
         if test_dataloader is None or len(test_dataloader) == 0:
             return None
 
-        if isinstance(variables, ConvStack):
+        if isinstance(variables, torch.nn.Module):
             stack = variables
             device = next(stack.parameters()).device
         else:

@@ -1,16 +1,15 @@
 """Reference `.pth` checkpoints, both ways (port of
-yogo_tpu/utils/torch_bridge.py for the conv-stack family).
+yogo_tpu/utils/torch_bridge.py).
 
 The reference stores one torch.save dict whose model_state_dict keys follow
 its nn.Sequential layout (reference: yogo/train.py:267-293,
-yogo/model.py:94-147): every block is Sequential(conv, [bn], act, [drop])
-at `model.{i}`, except the bare 1x1 head conv `model.{i}` itself. These
-functions map those keys onto the flax-layout variables that the rest of
-the port (and the JAX package) carries, so a `.pth` from the reference or
-from either package loads into either package.
-
-ConvNeXt `.pth` keys (timm's module naming) are not ported: they raise,
-naming ROADMAP.md Queue 1 item 12.
+yogo/model.py:94-147): every block of a conv stack is Sequential(conv,
+[bn], act, [drop]) at `model.{i}`, except the bare 1x1 head conv
+`model.{i}` itself; convnext_small is timm's ConvNeXt in a Sequential
+(`_convnext_key_pairs`). These functions map those keys onto the
+flax-layout variables that the rest of the port (and the JAX package)
+carries, so a `.pth` from the reference or from either package loads into
+either package.
 """
 
 from __future__ import annotations
@@ -22,8 +21,9 @@ import numpy as np
 import torch
 
 from yogo_tpu_torch.models.defns import ModelDefn
-from yogo_tpu_torch.models.yogo import YOGO
+from yogo_tpu_torch.models.yogo import CONVNEXT_DEPTHS, YOGO
 from yogo_tpu_torch.ops.grid import cell_offsets
+from yogo_tpu_torch.utils.weights import flax_params_from_named, named_from_flax_params
 
 
 def _torch_key_layout(defn: ModelDefn):
@@ -35,18 +35,59 @@ def _torch_key_layout(defn: ModelDefn):
             yield i, s, f"model.{i}.0", (f"model.{i}.1" if s.bn else None)
 
 
-def _require_conv_stack(defn: ModelDefn) -> None:
-    if defn.family == "convnext":
+def _require_known_family(defn: ModelDefn) -> None:
+    if defn.family not in ("conv_stack", "convnext"):
         raise NotImplementedError(
-            f".pth interop for '{defn.name}' (family convnext) is not ported "
-            "yet: ROADMAP.md Queue 1 item 12 brings the ConvNeXt family and "
-            "its .pth keys"
+            f".pth interop is implemented for the conv_stack and convnext "
+            f"families; '{defn.name}' is family '{defn.family}'"
         )
-    if defn.family != "conv_stack":
-        raise NotImplementedError(
-            f".pth interop is implemented for the conv_stack family; "
-            f"'{defn.name}' is family '{defn.family}'"
-        )
+
+
+# The reference builds convnext_small as
+#   nn.Sequential(stem, stages) + add_module("format time!", head)
+# from timm's ConvNeXt (reference: yogo/model_defns.py:533-558), so its keys
+# follow timm's (>= 0.6) module names under the positional Sequential prefix:
+#   model.0.0 / model.0.1                        stem conv + LayerNorm2d
+#   model.1.{s}.downsample.{0,1}   (s = 1..3)    LayerNorm2d + 2x2 conv
+#   model.1.{s}.blocks.{b}.conv_dw|norm|mlp.fc1|mlp.fc2|gamma
+#   model.format time!.0 / model.format time!.1   1x1 conv + ConvTranspose2d
+# timm's tensors have the port module's layouts, so only the names differ:
+# the layouts are carried by utils/weights.py, as for a .ckpt.
+def _convnext_key_pairs():
+    """Yield (port parameter name, timm key) for ConvNeXt-Small, in timm's
+    order."""
+
+    def module(port, timm):
+        return ((f"{port}.{leaf}", f"{timm}.{leaf}") for leaf in ("weight", "bias"))
+
+    yield from module("stem_conv", "model.0.0")
+    yield from module("stem_norm", "model.0.1")
+    for s, depth in enumerate(CONVNEXT_DEPTHS):
+        if s > 0:
+            yield from module(f"down{s}_norm", f"model.1.{s}.downsample.0")
+            yield from module(f"down{s}_conv", f"model.1.{s}.downsample.1")
+        for b in range(depth):
+            port, pfx = f"stage{s}_block{b}", f"model.1.{s}.blocks.{b}"
+            yield from module(f"{port}.dwconv", f"{pfx}.conv_dw")
+            yield from module(f"{port}.norm", f"{pfx}.norm")
+            yield from module(f"{port}.pwconv1", f"{pfx}.mlp.fc1")
+            yield from module(f"{port}.pwconv2", f"{pfx}.mlp.fc2")
+            yield f"{port}.gamma", f"{pfx}.gamma"
+    yield from module("format_conv", "model.format time!.0")
+    yield from module("format_up", "model.format time!.1")
+
+
+def _convnext_state_dict_to_params(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    return flax_params_from_named({port: state_dict[timm] for port, timm in _convnext_key_pairs()})
+
+
+def _convnext_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    named = named_from_flax_params(params)
+    return {timm: named[port] for port, timm in _convnext_key_pairs()}
+
+
+def _t(x: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True))
 
 
 def _np(t: Any) -> np.ndarray:
@@ -57,9 +98,11 @@ def _np(t: Any) -> np.ndarray:
 def state_dict_to_variables(
     state_dict: Dict[str, Any], defn: ModelDefn
 ) -> Dict[str, Any]:
-    """Reference-layout state_dict -> flax {'params', 'batch_stats'} of
+    """Reference-layout state_dict -> flax {'params'[, 'batch_stats']} of
     numpy arrays (conv weights OIHW -> HWIO)."""
-    _require_conv_stack(defn)
+    _require_known_family(defn)
+    if defn.family == "convnext":
+        return {"params": _convnext_state_dict_to_params(state_dict)}
     params: Dict[str, Any] = {}
     batch_stats: Dict[str, Any] = {}
     for i, s, conv_key, bn_key in _torch_key_layout(defn):
@@ -82,30 +125,32 @@ def state_dict_to_variables(
     return variables
 
 
+def _conv_stack_state_dict(defn: ModelDefn, params, batch_stats) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for i, s, conv_key, bn_key in _torch_key_layout(defn):
+        p = params[f"conv{i}"]
+        sd[f"{conv_key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+        if s.bias:
+            sd[f"{conv_key}.bias"] = _t(p["bias"])
+        if bn_key is not None:
+            sd[f"{bn_key}.weight"] = _t(params[f"bn{i}"]["scale"])
+            sd[f"{bn_key}.bias"] = _t(params[f"bn{i}"]["bias"])
+            sd[f"{bn_key}.running_mean"] = _t(batch_stats[f"bn{i}"]["mean"])
+            sd[f"{bn_key}.running_var"] = _t(batch_stats[f"bn{i}"]["var"])
+            sd[f"{bn_key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
 def variables_to_state_dict(variables: Dict[str, Any], model: YOGO) -> Dict[str, torch.Tensor]:
     """flax variables -> reference-layout state_dict, with the reference
     model's config buffers (reference: yogo/model.py:35-65)."""
     defn = model.defn
-    _require_conv_stack(defn)
+    _require_known_family(defn)
     params = variables["params"]
-    batch_stats = variables.get("batch_stats", {})
-
-    def t(x):
-        return torch.from_numpy(np.array(x, copy=True))
-
-    sd: Dict[str, torch.Tensor] = {}
-    for i, s, conv_key, bn_key in _torch_key_layout(defn):
-        p = params[f"conv{i}"]
-        sd[f"{conv_key}.weight"] = t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
-        if s.bias:
-            sd[f"{conv_key}.bias"] = t(p["bias"])
-        if bn_key is not None:
-            sd[f"{bn_key}.weight"] = t(params[f"bn{i}"]["scale"])
-            sd[f"{bn_key}.bias"] = t(params[f"bn{i}"]["bias"])
-            sd[f"{bn_key}.running_mean"] = t(batch_stats[f"bn{i}"]["mean"])
-            sd[f"{bn_key}.running_var"] = t(batch_stats[f"bn{i}"]["var"])
-            sd[f"{bn_key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
-
+    if defn.family == "convnext":
+        sd = _convnext_params_to_state_dict(params)
+    else:
+        sd = _conv_stack_state_dict(defn, params, variables.get("batch_stats", {}))
     sx, sy = model.grid
     cxs, cys = cell_offsets(sx, sy)
     sd["img_size"] = torch.tensor(list(model.img_size))
@@ -115,8 +160,8 @@ def variables_to_state_dict(variables: Dict[str, Any], model: YOGO) -> Dict[str,
     sd["clip_value"] = torch.tensor(model.clip_value)
     sd["is_rgb"] = torch.tensor(model.is_rgb)
     sd["normalize_images"] = torch.tensor(model.normalize_images)
-    sd["_Cxs"] = t(cxs)
-    sd["_Cys"] = t(cys)
+    sd["_Cxs"] = _t(cxs)
+    sd["_Cys"] = _t(cys)
     sd["height_multiplier"] = torch.tensor(model.height_multiplier)
     sd["width_multiplier"] = torch.tensor(model.width_multiplier)
     return sd

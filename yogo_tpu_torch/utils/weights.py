@@ -1,13 +1,20 @@
 """Carry weights and optimizer state between the JAX package's flax / optax
 layout and torch modules, both ways, as numpy trees.
 
-flax keeps conv kernels HWIO and names BN tensors scale/bias/mean/var; the
-port's ConvStack (models/yogo.py) keeps torch's OIHW and BatchNorm2d names:
+flax keeps conv kernels HWIO, Dense kernels (I, O) and names norm tensors
+scale/bias (BN also mean/var); the port's modules (models/yogo.py) keep
+torch's layouts and names under the same module paths:
 
-  params/conv{i}/kernel (HWIO)   <-> conv{i}.weight (OIHW, transpose(3,2,0,1))
-  params/conv{i}/bias            <-> conv{i}.bias
-  params/bn{i}/{scale,bias}      <-> bn{i}.{weight,bias}
-  batch_stats/bn{i}/{mean,var}   <-> bn{i}.running_{mean,var}
+  conv kernel  .../{conv}/kernel (HWIO)   <-> {conv}.weight (OIHW, transpose(3,2,0,1));
+               a depthwise (7,7,1,C) gives (C,1,7,7)
+  Dense        .../pwconv{1,2}/kernel (I,O) <-> .weight (O,I)
+  transpose    format_up/kernel (kh,kw,I,O) <-> format_up.weight (I,O,kh,kw),
+               spatially flipped: flax's ConvTranspose correlates with the
+               kernel as it is, torch's ConvTranspose2d with it flipped
+  norms        bn{i} / *norm: scale, bias <-> weight, bias
+  ConvNeXt     stage{s}_block{b}/gamma <-> stage{s}_block{b}.gamma (a bare parameter)
+  biases       bias <-> bias
+  BN stats     batch_stats/bn{i}/{mean,var} <-> bn{i}.running_{mean,var}
   (bn{i}.num_batches_tracked, which flax does not track, is 0 one way and
   dropped the other)
 
@@ -25,39 +32,72 @@ step / exp_avg / exp_avg_sq, and the scheduler its own step count.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
-# torch parameter suffix <-> flax leaf name, by module kind
-_LEAVES = {"conv": {"weight": "kernel", "bias": "bias"}, "bn": {"weight": "scale", "bias": "bias"}}
 _STATS = {"running_mean": "mean", "running_var": "var"}
+_LINEAR = ("pwconv1", "pwconv2")
+_TRANSPOSE = ("format_up",)
 
 
 def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def _kind(name: str) -> str:
-    for kind in _LEAVES:
-        if name.startswith(kind):
-            return kind
-    raise ValueError(f"unexpected parameter group {name!r} (not a conv stack?)")
+def _is_norm(module: str) -> bool:
+    return module.startswith("bn") or module.endswith("norm")
+
+
+def _leaf_to_torch(module: str, leaf: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
+    """(flax leaf name, array) of module `module` -> (torch suffix, array)."""
+    if leaf == "kernel" and not _is_norm(module):
+        if module in _LINEAR:
+            return "weight", a.T
+        if module in _TRANSPOSE:
+            return "weight", a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        return "weight", a.transpose(3, 2, 0, 1)
+    if leaf == "scale" and _is_norm(module):
+        return "weight", a
+    if leaf == "bias":
+        return "bias", a
+    raise ValueError(f"unexpected parameter {module}/{leaf}")
+
+
+def _leaf_to_flax(module: str, suffix: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
+    """The inverse of _leaf_to_torch."""
+    if suffix == "weight":
+        if _is_norm(module):
+            return "scale", a
+        if module in _LINEAR:
+            return "kernel", a.T
+        if module in _TRANSPOSE:
+            return "kernel", a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        return "kernel", a.transpose(2, 3, 1, 0)
+    if suffix == "bias":
+        return "bias", a
+    raise ValueError(f"unexpected parameter {module}.{suffix}")
 
 
 def named_from_flax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A flax params-shaped tree (the params, or Adam's mu / nu) ->
-    {torch parameter name: float32 tensor}, conv kernels in OIHW."""
+    {torch parameter name: float32 tensor} in torch's layouts."""
     out: Dict[str, torch.Tensor] = {}
-    for name, leaves in params.items():
-        for suffix, leaf in _LEAVES[_kind(name)].items():
-            if leaf not in leaves:
-                continue
-            t = _tensor(leaves[leaf])
-            if leaf == "kernel":
-                t = t.permute(3, 2, 0, 1).contiguous()
-            out[f"{name}.{suffix}"] = t
+
+    def walk(node: Dict[str, Any], path: Tuple[str, ...]) -> None:
+        for name, child in node.items():
+            if isinstance(child, dict):
+                walk(child, path + (name,))
+            elif name == "gamma":
+                out[".".join(path + (name,))] = _tensor(child)
+            elif not path:
+                raise ValueError(f"unexpected top-level parameter {name!r}")
+            else:
+                suffix, a = _leaf_to_torch(path[-1], name, np.asarray(child, np.float32))
+                out[".".join(path + (suffix,))] = _tensor(a)
+
+    walk(params, ())
     return out
 
 
@@ -66,19 +106,26 @@ def flax_params_from_named(named: Dict[str, Any]) -> Dict[str, Any]:
     or array} -> a flax params-shaped tree of float32 numpy arrays."""
     params: Dict[str, Any] = {}
     for key, value in named.items():
-        name, suffix = key.rsplit(".", 1)
-        leaf = _LEAVES[_kind(name)][suffix]
         a = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
         a = np.asarray(a, np.float32)
-        if leaf == "kernel":
-            a = a.transpose(2, 3, 1, 0)
-        params.setdefault(name, {})[leaf] = np.ascontiguousarray(a)
+        *path, suffix = key.split(".")
+        if suffix == "gamma":
+            node, leaf = params, suffix
+        else:
+            if not path:
+                raise ValueError(f"unexpected parameter {key!r}")
+            leaf, a = _leaf_to_flax(path[-1], suffix, a)
+            node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
     return params
 
 
 def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax variables {"params": ..., "batch_stats": ...} of a conv stack ->
-    a state_dict that ConvStack.load_state_dict(strict=True) accepts."""
+    """flax variables {"params": ..., ["batch_stats": ...]} -> a state_dict
+    that the architecture's module (YOGO.module) load_state_dict(strict=True)
+    accepts."""
     sd = named_from_flax_params(variables["params"])
     for name, stats in variables.get("batch_stats", {}).items():
         for buffer, leaf in _STATS.items():
@@ -88,9 +135,10 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """A ConvStack state_dict -> flax variables {"params", "batch_stats"}
+    """A module's state_dict -> flax variables {"params", "batch_stats"}
     as nested dicts of float32 numpy arrays (what save_checkpoint writes
-    and the JAX package's YOGO.apply takes)."""
+    and the JAX package's YOGO.apply takes). A model without BN gets an
+    empty "batch_stats", as the JAX package's Trainer writes it."""
     named, batch_stats = {}, {}
     for key, value in state_dict.items():
         name, suffix = key.rsplit(".", 1)
