@@ -83,7 +83,15 @@ Phases (any failure exits non-zero):
      against its plain version at all 71 sites of that batch and its time
      at three, int8 against bf16 forward; `serve` and `serve --quantize` at
      micro-batch 8 equal to the formatter, before and after a reload;
- 11. one JSON line per kernel ("kernels"), then the last line
+ 11. export (export_phase): `export` of the golden checkpoint with the
+     default device (the card): the .onnx bytes equal build_onnx on the
+     CPU, the parity gate on the card, build / verify ms, the stem launched
+     no time; the graph on the golden frames one at a time through the
+     interpreter on the card, within +-1 of the f32 goldens;
+     `--crop-height 0.25` ((1, 1, 193, 1032)), `--format pth` (head
+     bit-equal), `--format stablehlo` (raises); ConvNeXt-Small's graph at
+     772x1032 through the gate;
+ 12. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -1847,6 +1855,131 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
     return out, launches
 
 
+def onnx_input_shape(model_bytes: bytes) -> tuple:
+    """The dims of an ONNX graph's first input (ValueInfoProto ->
+    TypeProto.tensor_type -> TensorShapeProto), read with the port's parser."""
+    from yogo_tpu_torch.utils import onnx_proto as op
+
+    graph = op.parse_message(op.parse_message(model_bytes)[7][0])
+    tensor_type = op.parse_message(op.parse_message(graph[11][0])[2][0])[1][0]
+    shape = op.parse_message(op.parse_message(tensor_type)[2][0])
+    return tuple(op.parse_message(d)[1][0] for d in shape[1])
+
+
+def export_phase(device_arg, imgs4, *, want_per_image, ckpt=CKPT, convnext_hw=HW):
+    """Phase 11: `export`. device_arg None runs on the card (the CLI
+    without --device); "cpu" rehearses the control flow (ConvNeXt at a small
+    `convnext_hw`). In order:
+      1. `export` of the golden checkpoint through main(): the .onnx file's
+         bytes equal build_onnx run on the CPU's variables in this process;
+         the gate's max deviation; build_onnx and verify_onnx (reference
+         forward and interpreter on the device) timed apart; the stem's
+         launch count over every export command 0;
+      2. the exported graph, run by run_model on the device one golden frame
+         at a time, through count_class_predictions (obj 0.5, iou 0.5):
+         per-image counts within +-1 of the f32 goldens;
+      3. `--crop-height 0.25`: the graph's input is (1, 1, 193, 1032) and
+         the gate passes; `--format pth`: load_any gives a head on the
+         device bit-equal to the .ckpt's; `--format stablehlo` raises,
+         naming the JAX package's command;
+      4. ConvNeXt-Small at `convnext_hw` on phase 10's seeded weights: the
+         bytes of build_onnx over the weights held on the device equal those
+         over the CPU's; the gate passes on the device; times and size.
+    Returns the numbers for the report (stem launches under "stem_launches").
+    Every check raises."""
+    from yogo_tpu_torch.__main__ import main as cli
+    from yogo_tpu_torch.models.yogo import YOGO, resolve_device
+    from yogo_tpu_torch.ops.postprocess import count_class_predictions
+    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
+    from yogo_tpu_torch.utils.checkpoint import load_any
+    from yogo_tpu_torch.utils.export_model import build_onnx, verify_onnx
+    from yogo_tpu_torch.utils.onnx_interp import run_model
+    from yogo_tpu_torch.utils.weights import flax_from_state_dict, state_dict_from_flax
+
+    dev = resolve_device(device_arg)
+    flags = [] if device_arg is None else ["--device", device_arg]
+    out = {}
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_ctx.name)
+
+    def ms_since(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    # ---------------------------------------------- 1. export, the CLI
+    STEM_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    cli(["export", str(ckpt), "--output-filename", str(tmp / "golden"), *flags])
+    cli_ms = ms_since(t0)
+    blob = (tmp / "golden.onnx").read_bytes()
+    model, variables, _ = load_any(ckpt)
+    t0 = time.perf_counter()
+    cpu_blob = build_onnx(model, variables)
+    build_ms = ms_since(t0)
+    if blob != cpu_blob:
+        raise AssertionError("export: the file differs from build_onnx on the CPU")
+    t0 = time.perf_counter()
+    max_dev = verify_onnx(model, variables, blob, device=dev)
+    verify_ms = ms_since(t0)
+    out["golden"] = {"max_dev": max_dev, "build_ms": build_ms, "verify_ms": verify_ms,
+                     "export_cli_ms": cli_ms, "bytes": len(blob)}
+    log(f"export golden base_model {model.img_size}: {len(blob)} bytes, gate max dev {max_dev:.3g}, "
+        f"build {build_ms:.1f} ms, verify {verify_ms:.1f} ms, CLI {cli_ms:.1f} ms")
+
+    # ------------------------------- 2. the graph on the golden frames
+    per = []
+    for i in range(len(imgs4)):
+        dec = run_model(blob, {"images": imgs4[i : i + 1]}, device=dev)[0]
+        per.append(int(count_class_predictions(torch.from_numpy(dec), obj_thresh=0.5, iou_thresh=0.5).sum()))
+    log(f"export: the graph on the golden frames, per image {per} (f32 golden {want_per_image})")
+    if any(abs(a - b) > 1 for a, b in zip(per, want_per_image)):
+        raise AssertionError(f"export: graph counts {per} vs golden {want_per_image}")
+    out["golden"]["per_image"] = per
+
+    # ------------------------------------- 3. crop, .pth, stablehlo
+    cli(["export", str(ckpt), "--crop-height", "0.25", "--output-filename", str(tmp / "crop"), *flags])
+    crop_shape = onnx_input_shape((tmp / "crop.onnx").read_bytes())
+    if crop_shape != (1, 1, 193, 1032):
+        raise AssertionError(f"export --crop-height 0.25: input {crop_shape}")
+    cli(["export", str(ckpt), "--format", "pth", "--output-filename", str(tmp / "golden"), *flags])
+    heads = []
+    for path in (ckpt, tmp / "golden.pth"):
+        m, v, _ = load_any(path)
+        stack = m.module(dev)
+        stack.load_state_dict(state_dict_from_flax(v), strict=True)
+        heads.append(m.apply(stack, torch.from_numpy(imgs4[:1]).to(dev), decode=False).cpu())
+    if not torch.equal(*heads):
+        raise AssertionError("export --format pth: the reloaded head differs from the .ckpt's")
+    try:
+        cli(["export", str(ckpt), "--format", "stablehlo", *flags])
+        raise AssertionError("export --format stablehlo did not raise")
+    except NotImplementedError as e:
+        if "python -m yogo_tpu export --format stablehlo" not in str(e):
+            raise
+    out["stem_launches"] = sum(STEM_LAUNCHES.values())
+    log(f"export --crop-height 0.25: input {crop_shape}; --format pth: head bit-equal; "
+        f"stablehlo raises; stem launches over every export command: {out['stem_launches']}")
+    if out["stem_launches"]:
+        raise AssertionError(f"export launched the stem kernel: {dict(STEM_LAUNCHES)}")
+
+    # ---------------------------------------------- 4. ConvNeXt-Small
+    cnx = YOGO.create(convnext_hw, 0.0425, 0.0555, 2, model_version="convnext_small")
+    cnx_vars = flax_from_state_dict(perturbed_convnext(cnx, dev).state_dict())
+    t0 = time.perf_counter()
+    cnx_blob = build_onnx(cnx, cnx_vars)
+    cnx_build_ms = ms_since(t0)
+    if cnx_blob != build_onnx(cnx, flax_from_state_dict(perturbed_convnext(cnx, "cpu").state_dict())):
+        raise AssertionError("export convnext: the bytes differ from the CPU weights' build")
+    t0 = time.perf_counter()
+    cnx_dev = verify_onnx(cnx, cnx_vars, cnx_blob, device=dev)
+    out["convnext"] = {"max_dev": cnx_dev, "build_ms": cnx_build_ms, "verify_ms": ms_since(t0),
+                       "bytes": len(cnx_blob), "hw": list(convnext_hw)}
+    del cnx_blob, cnx_vars
+    log(f"export convnext_small {convnext_hw}: " + json.dumps(out["convnext"]))
+
+    tmp_ctx.cleanup()
+    return out
+
+
 def main() -> int:
     # ------------------------------------------------------------ 1. device
     if not torch.cuda.is_available():
@@ -2095,7 +2228,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["convnext"], convnext_int8_launches = convnext_phase(None, imgs4, boxes4, smi)
 
-    # ----------------------------------------------------------- 11. report
+    # ------------------------------------------------------------ 11. export
+    torch.cuda.empty_cache()
+    report["export"] = export_phase(None, imgs4, want_per_image=want_per_image)
+
+    # ----------------------------------------------------------- 12. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -2109,6 +2246,7 @@ def main() -> int:
             "launches_serve_by_batch": {f"b{b}": n.get(f"stem_{layout}", 0)
                                         for b, n in serve_launches.items()},
             "launches_convnext_count_path": report["convnext"]["bf16"]["stem_launches"],
+            "launches_export": report["export"]["stem_launches"],
             "max_abs_err": max_err[layout],
             "ms": timing[layout]["ms"],
             "plain_ms": timing[layout]["plain_ms"],

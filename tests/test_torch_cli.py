@@ -46,6 +46,9 @@ GOLDEN_CKPT = "tests/goldens/trained_half_filters.ckpt"
                       "--crop-height", "0.25", "--output-img-filetype", ".tif", "--obj-thresh", "0.3",
                       "--iou-thresh", "0.4", "--min-class-confidence-threshold", "0.2",
                       "--max-detections", "99", "--fetch-top-k", "0", "--no-use-tqdm"]),
+    ("export_parser", ["m.ckpt"]),
+    ("export_parser", ["m.pth", "--crop-height", "0.25", "--output-filename", "o", "--no-simplify",
+                       "--format", "pth"]),
     ("serve_parser", ["m.ckpt"]),
     ("serve_parser", ["m.ckpt", "--host", "0.0.0.0", "--port", "0", "--batch-size", "64",
                       "--linger-ms", "2", "--fetch-top-k", "128", "--pipeline-depth", "3",
@@ -91,8 +94,11 @@ def test_global_parser_dispatches_three_subcommands_and_infer_keeps_its_flags(ca
     assert str(p.parse_args(["infer", "m.ckpt", "--path-to-image", "i.png"]).path_to_images) == "i.png"
     a = p.parse_args(["serve", "m.ckpt", "--half", "--device", "cpu"])
     assert (a.task, a.half, a.batch_size, a.port, a.device) == ("serve", True, 8, 8765, "cpu")
-    for bad in (["export", "m.ckpt"], ["infer", "m.ckpt"], ["infer", "m.ckpt", "--path-to-images", "d",
-                                                            "--batch-size", "0"], ["train", "d", "--epo", "1"],
+    a = p.parse_args(["export", "m.ckpt"])
+    assert (a.task, a.input, a.format, a.simplify, a.crop_height, a.device) == (
+        "export", "m.ckpt", "onnx", True, None, None)
+    for bad in (["export", "m.ckpt", "--format", "tflite"], ["infer", "m.ckpt"],
+                ["infer", "m.ckpt", "--path-to-images", "d", "--batch-size", "0"], ["train", "d", "--epo", "1"],
                 ["infer", "m.ckpt", "--path-to-images", "d", "--path-to-zarr", "z"],
                 ["serve", "m.ckpt", "--batch-size", "0"]):
         with pytest.raises(SystemExit):

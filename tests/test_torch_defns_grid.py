@@ -85,7 +85,9 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stderr
     assert any(m.endswith("__main__") for m in mods) and len(mods) > 15
     for new in ("data.loader", "data.packed_cache", "data.prefetch", "metrics.device_metrics",
-                "native", "utils.argparsers", "utils.logging", "utils.test_model"):
+                "native", "utils.argparsers", "utils.logging", "utils.test_model",
+                "utils.export_model", "utils.onnx_proto", "utils.onnx_interp", "utils.cluster_anchors",
+                "utils.wandb_helpers", "ops.window_nms"):
         assert f"yogo_tpu_torch.{new}" in mods
 
 

@@ -1,8 +1,10 @@
-"""CLI dispatcher: `python -m yogo_tpu_torch {train,test,infer,serve}` (port of
+"""CLI dispatcher: `python -m yogo_tpu_torch {train,test,export,infer,serve}` (port of
 yogo_tpu/__main__.py; subcommand modules import lazily). Every subcommand
 runs on CUDA and raises without it, unless `--device cpu` is given."""
 
 from __future__ import annotations
+
+import sys
 
 from yogo_tpu_torch.utils.argparsers import global_parser
 
@@ -19,6 +21,14 @@ def main(argv=None) -> None:
         from yogo_tpu_torch.utils.test_model import do_model_test
 
         do_model_test(args)
+    elif args.task == "export":
+        from yogo_tpu_torch.utils.export_model import do_export
+
+        try:
+            do_export(args)
+        except ImportError as e:
+            print(f"export dependencies missing: {e}")
+            sys.exit(1)
     elif args.task == "infer":
         from yogo_tpu_torch.infer import do_infer
 

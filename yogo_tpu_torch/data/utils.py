@@ -2,13 +2,14 @@
 
 PIL-based replacements for the reference's torchvision.io C decoders
 (reference: yogo/data/utils.py:16-63): grayscale/RGB decode returning CHW
-uint8 numpy and retry-with-backoff robustness. PIL is imported inside the
-functions that decode, so the package imports without it. (The
-ultralytics-format dataset exporter is not ported yet.)
+uint8 numpy, retry-with-backoff robustness, and the ultralytics-format
+dataset exporter. PIL and yaml are imported inside the functions that use
+them, so the package imports without them.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from pathlib import Path
 from time import sleep
@@ -84,3 +85,49 @@ def collate_batch_robust(samples: List[Optional[Tuple[np.ndarray, np.ndarray]]])
         return None
     imgs, labels = zip(*pairs)
     return np.stack(imgs), np.stack(labels)
+
+
+def convert_dataset_definition_to_ultralytics_format(
+    dataset_definition_path: Path, target_dir: Path
+) -> None:
+    """Symlink-tree + yaml exporter for ultralytics-format training
+    (reference: yogo/data/utils.py:66-138)."""
+    import yaml
+
+    from yogo_tpu_torch.data.definition import DatasetDefinition
+
+    defn = DatasetDefinition.from_yaml(dataset_definition_path)
+    target_dir = Path(target_dir)
+    target_dir.mkdir(exist_ok=True, parents=True)
+    train_dir = target_dir / "train"
+    val_dir = target_dir / "val"
+    train_dir.mkdir(exist_ok=True)
+    val_dir.mkdir(exist_ok=True)
+
+    def link_specs(specs, base_dir):
+        out_paths = []
+        for spec in specs:
+            d = base_dir / spec.image_path.parent.name
+            d.mkdir(exist_ok=True)
+            for src, name in ((spec.image_path, "images"), (spec.label_path, "labels")):
+                try:
+                    os.symlink(src, d / name)
+                except FileExistsError:
+                    pass
+            out_paths.append(str(d / "images"))
+        return out_paths
+
+    train_paths = link_specs(defn.dataset_paths, train_dir)
+    test_paths = link_specs(defn.test_dataset_paths, val_dir)
+
+    with open(target_dir / "dataset_defn.yaml", "w") as f:
+        yaml.safe_dump(
+            {
+                "path": str(target_dir.resolve()),
+                "train": train_paths,
+                "val": test_paths,
+                "names": dict(enumerate(defn.classes)),
+            },
+            f,
+            default_flow_style=False,
+        )

@@ -1,10 +1,10 @@
 """CLI argument parsers (port of yogo_tpu/utils/argparsers.py, which is
 flag-compatible with the reference CLI, reference:
-yogo/utils/argparsers.py:74-489): `train`, `test`, `infer` and `serve`
-with the same flag names, validating types and defaults as the JAX package;
-`--device` defaults to CUDA. The flags of paths not ported yet
+yogo/utils/argparsers.py:74-489): `train`, `test`, `export`, `infer` and
+`serve` with the same flag names, validating types and defaults as the JAX
+package; `--device` defaults to CUDA. The flags of paths not ported yet
 (`--data-parallel`, `--spatial-parallel`) parse, and the commands raise naming
-their ROADMAP item. `export` is not ported yet.
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -102,6 +102,9 @@ def global_parser():
     )
     test_parser(
         parser=subparsers.add_parser("test", help="test a model", allow_abbrev=False)
+    )
+    export_parser(
+        parser=subparsers.add_parser("export", help="export a model", allow_abbrev=False)
     )
     infer_parser(
         parser=subparsers.add_parser(
@@ -433,6 +436,37 @@ def test_parser(parser=None):
                         help="note for the run")
     parser.add_argument("--tags", type=str, nargs="*", default=None,
                         help="tags for the run")
+    return parser
+
+
+def export_parser(parser=None):
+    if parser is None:
+        parser = argparse.ArgumentParser(
+            description="export a trained model", allow_abbrev=False
+        )
+    parser.add_argument("input", type=str,
+                        help="path to input checkpoint (.ckpt or .pth)")
+    parser.add_argument("--device", type=str, default=None, help=DEVICE_HELP)
+    parser.add_argument(
+        "--crop-height", type=unitary_float,
+        help=(
+            "crop image vertically - '--crop-height 0.25' crops images to "
+            "(round(0.25 * height), width)"
+        ),
+    )
+    parser.add_argument("--output-filename", type=str, help="output filename")
+    parser.add_argument(
+        "--simplify", action=boolean_action, default=True,
+        help="attempt to simplify the onnx model",
+    )
+    parser.add_argument(
+        "--format", type=str, default="onnx",
+        choices=["onnx", "stablehlo", "pth"],
+        help=(
+            "export format (default: onnx; stablehlo is written by the JAX "
+            "package, `python -m yogo_tpu export`, and raises here)"
+        ),
+    )
     return parser
 
 
