@@ -91,7 +91,18 @@ Phases (any failure exits non-zero):
      `--crop-height 0.25` ((1, 1, 193, 1032)), `--format pth` (head
      bit-equal), `--format stablehlo` (raises); ConvNeXt-Small's graph at
      772x1032 through the gate;
- 12. one JSON line per kernel ("kernels"), then the last line
+ 12. parallel (parallel_phase): a training step in a process group of
+     world 1 over NCCL bit-equal to no group; two ranks on the one card
+     over gloo (NCCL takes one rank a card): f32 steps on a global batch of
+     8 with a masked pad row against one process (rtol 1e-4), BN statistics
+     equal on the ranks, --fsdp against the replicated run (rtol 2e-4) and
+     its checkpoint; bf16 step ms / peak GiB at world 1 and 2; `infer
+     --count --data-parallel` through the CLI (rank 0 alone prints one
+     process's line; one stem launch a batch on each rank; --save-preds
+     files equal one process's); `--quantize` (rank 0's scales on both
+     ranks, bit for bit; the int8 golden gates); ConvNeXt-Small's state
+     bytes and peak per rank, replicated and --fsdp;
+ 13. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -1980,6 +1991,482 @@ def export_phase(device_arg, imgs4, *, want_per_image, ckpt=CKPT, convnext_hw=HW
     return out
 
 
+# --------------------------------------------------------------- 12. parallel
+PARALLEL_WORKER = "--parallel-worker"
+RANK_TIMEOUT_S = 600
+F32_GLOBAL_BATCH = 8
+
+
+def run_ranks(mode: str, spec: dict, world: int, work: Path, timeout: float = RANK_TIMEOUT_S):
+    """`world` processes of this script in PARALLEL_WORKER mode `mode`, one
+    rank each (RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT set here),
+    stdout and stderr to files in `work`. Polled: the first rank to fail
+    kills every other, and so does the time limit; then it raises. Returns
+    each rank's result (work/<mode>.<rank>.json)."""
+    import socket
+
+    (work / f"{mode}.json").write_text(json.dumps(spec))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs, files = [], []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTHONPATH=f"{REPO}:{os.environ.get('PYTHONPATH', '')}")
+        out = open(work / f"{mode}.{rank}.out", "w")
+        err = open(work / f"{mode}.{rank}.err", "w")
+        files += [out, err]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-X", "faulthandler", str(REPO / "chip_smoke.py"), PARALLEL_WORKER, mode,
+             str(work)],
+            env=env, stdout=out, stderr=err, cwd=str(work)))
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}" if bad else "timed out"
+                break
+            time.sleep(0.5)
+        if failed is None:
+            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}" if bad else None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    if failed:
+        tails = "\n".join(f"--- rank {r} ---\n{(work / f'{mode}.{r}.out').read_text()[-1500:]}"
+                          f"\n{(work / f'{mode}.{r}.err').read_text()[-3000:]}" for r in range(world))
+        raise AssertionError(f"parallel {mode}: {failed}\n{tails}")
+    return [json.loads((work / f"{mode}.{r}.json").read_text()) for r in range(world)]
+
+
+def _dp_setup(spec):
+    """What every worker shares: the device, the golden frames with their
+    label grids (tiled) and the base_model config of the golden checkpoint."""
+    from yogo_tpu_torch.ops.grid import encode_label_grid_np
+    from yogo_tpu_torch.parallel.distributed import local_device
+    from yogo_tpu_torch.utils.checkpoint import load_checkpoint
+
+    dev = local_device(spec["device"])
+    gold_model, _, _ = load_checkpoint(CKPT)
+    model = dataclasses.replace(gold_model, img_size=tuple(spec["hw"]))
+    imgs4, boxes4 = gen_golden_images(4, hw=tuple(spec["hw"]))
+    sx, sy = model.grid
+    grids4 = np.stack([encode_label_grid_np(b, sx, sy) for b in boxes4])
+    return dev, model, imgs4, grids4
+
+
+def _dp_batch(imgs4, grids4, n, pad_last=False):
+    """n rows of the golden frames tiled, with their label grids and mask;
+    pad_last: the last row a masked copy of the first (a pad row)."""
+    reps = -(-n // len(imgs4))
+    imgs = np.concatenate([imgs4] * reps)[:n].copy()
+    grids = np.concatenate([grids4] * reps)[:n].copy()
+    mask = np.ones(n, np.float32)
+    if pad_last:
+        imgs[-1], grids[-1], mask[-1] = imgs[0], grids[0], 0.0
+    return imgs, grids, mask
+
+
+def _dp_steps(model, stack, batches, dev, *, fsdp=False, timed=0):
+    """Steps of make_train_step on `batches` (this rank's rows), flips and
+    dropout on, seeded per step; timed > 0 adds that many synchronized
+    steps on the last batch and returns their host-clock ms too."""
+    from yogo_tpu_torch.parallel.mesh import fully_shard_stack
+    from yogo_tpu_torch.train import TrainState, make_optimizer, make_train_step, step_seed
+    from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
+
+    loss_kw = dict(no_obj_weight=df.NO_OBJ_WEIGHT, iou_weight=df.IOU_WEIGHT,
+                   classify_weight=df.CLASSIFY_WEIGHT, label_smoothing=df.LABEL_SMOOTHING)
+    if fsdp:
+        fully_shard_stack(stack)
+    opt, sched, _ = make_optimizer(stack.parameters(), df.LEARNING_RATE, df.WEIGHT_DECAY,
+                                   df.DECAY_FACTOR, 100)
+    state = TrainState(stack, opt, sched)
+    step = make_train_step(model, loss_kw)
+    gen = torch.Generator()
+    losses, ms = [], []
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches]
+    for k in range(len(batches) + timed):
+        gen.manual_seed(step_seed(0, k))
+        t0 = time.perf_counter()
+        loss = float(step(state, *batches[min(k, len(batches) - 1)], gen)[1])  # a fence
+        if k >= len(batches):
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return state, losses, ms
+
+
+def _state_bytes(state) -> int:
+    """This rank's bytes of parameters and AdamW moments (an FSDP shard's
+    local part only)."""
+    def local(t):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        return t.numel() * t.element_size()
+
+    n = sum(local(p) for p in state.stack.parameters())
+    for st in state.optimizer.state.values():
+        n += sum(local(v) for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    return n
+
+
+def _tree_shapes(tree, prefix=""):
+    """{'a/b/c': shape} of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _tree_shapes(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: list(np.shape(tree))}
+
+
+def _peak_reset(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(dev):
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+
+
+def dp_worker_world1(work: Path, spec: dict) -> dict:
+    """One process: a float32 step (TF32 off) on the golden frames and
+    three bf16 steps at B=spec["batch"] with no process group, then the
+    same in a group of world 1 (NCCL on the card), cuDNN deterministic;
+    then timed bf16 steps in the group."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from yogo_tpu_torch.parallel.mesh import full_state_dict
+
+    dev, model, imgs4, grids4 = _dp_setup(spec)
+    # cuDNN's backward may pick atomics-based algorithms that differ run to
+    # run; two runs of one step compare bit for bit only without them
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    bf16 = model.with_compute_dtype(torch.bfloat16)
+    f32_batch = [_dp_batch(imgs4, grids4, 4)]
+    big = [_dp_batch(imgs4, grids4, spec["batch"])] * 3
+
+    def runs():
+        st, f32_losses, _ = _dp_steps(model, model.init(torch.Generator().manual_seed(0), device=dev),
+                                      f32_batch, dev)
+        params = {k: v.cpu() for k, v in full_state_dict(st.stack).items()}
+        _, bf16_losses, _ = _dp_steps(bf16, bf16.init(torch.Generator().manual_seed(0), device=dev),
+                                      big, dev)
+        return params, f32_losses, bf16_losses
+
+    p0, f0, b0 = runs()
+    dist.init_process_group(spec["backend"], init_method="env://", world_size=1, rank=0,
+                            timeout=timedelta(seconds=RANK_TIMEOUT_S),
+                            device_id=dev if spec["backend"] == "nccl" else None)
+    try:
+        probe = torch.ones(2, device=dev)
+        dist.all_reduce(probe)  # the group really carries a collective
+        p1, f1, b1 = runs()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+        _peak_reset(dev)
+        _, _, ms = _dp_steps(bf16, bf16.init(torch.Generator().manual_seed(0), device=dev),
+                             big[:1], dev, timed=spec["timed_steps"])
+        peak = _peak_gib(dev)
+    finally:
+        dist.destroy_process_group()
+    return {"bit_equal": all(torch.equal(p0[k], p1[k]) for k in p0) and sorted(p0) == sorted(p1),
+            "max_abs_diff": max(float((p0[k].double() - p1[k].double()).abs().max()) for k in p0),
+            "f32_losses": [f0, f1], "bf16_losses": [b0, b1], "all_reduce_probe": probe.tolist(),
+            "step_ms": ms, "peak_gib": peak}
+
+
+def dp_worker_world2(work: Path, spec: dict) -> dict:
+    """One rank of world 2 over gloo (two ranks share the one card): f32
+    steps replicated and under --fsdp (and its checkpoint), timed bf16
+    steps, `infer --count --data-parallel` and `infer --quantize
+    --data-parallel` through the CLI, ConvNeXt-Small's state per rank."""
+    import contextlib
+    import io
+
+    import yogo_tpu_torch.infer as infer_mod
+    from yogo_tpu_torch.__main__ import main as cli
+    from yogo_tpu_torch.ops import int8_conv as ic
+    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
+    from yogo_tpu_torch.parallel.distributed import barrier, initialize_multihost, process_shard
+    from yogo_tpu_torch.parallel.mesh import full_state_dict, local_rows
+    from yogo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from yogo_tpu_torch.utils.weights import flax_from_state_dict, optax_state_from_torch
+
+    if not initialize_multihost(backend="gloo", device=spec["device"], timeout_s=RANK_TIMEOUT_S):
+        raise AssertionError("no process group")
+    rank, world = process_shard()
+    dev, model, imgs4, grids4 = _dp_setup(spec)
+    out = {"rank": rank}
+
+    # ---- f32, TF32 off: replicated, then --fsdp, from one seed
+    log(f"rank {rank}: f32 steps")
+    glob = [_dp_batch(imgs4, grids4, F32_GLOBAL_BATCH, pad_last=True)] * 2
+    mine = [tuple(local_rows(a, F32_GLOBAL_BATCH // world) for a in b) for b in glob]
+    st, out["f32_losses"], _ = _dp_steps(model, model.init(torch.Generator().manual_seed(0), device=dev),
+                                         mine, dev)
+    out["bn_stats"] = {k: v.cpu().tolist() for k, v in st.stack.state_dict().items() if "running" in k}
+    shapes = _tree_shapes(flax_from_state_dict(st.stack.state_dict()))
+    log(f"rank {rank}: f32 steps under --fsdp")
+    st, out["fsdp_losses"], _ = _dp_steps(model, model.init(torch.Generator().manual_seed(0), device=dev),
+                                          mine, dev, fsdp=True)
+    variables = flax_from_state_dict(full_state_dict(st.stack))  # every rank gathers
+    opt_state = optax_state_from_torch(st.stack, st.optimizer, st.scheduler)
+    if rank == 0:
+        save_checkpoint(work / "fsdp.ckpt", model, variables, opt_state=opt_state, step=st.step)
+        _, v, meta = load_checkpoint(work / "fsdp.ckpt")
+        out["fsdp_ckpt"] = {"same_shapes": _tree_shapes(v) == shapes,
+                            "step": meta["step"], "opt_state": "_opt_state_bytes" in meta}
+    del st, variables, opt_state
+
+    # ---- bf16 at global batch spec["batch"]: step time and memory per rank
+    log(f"rank {rank}: bf16 steps")
+    bf16 = model.with_compute_dtype(torch.bfloat16)
+    b = spec["batch"] // world
+    _peak_reset(dev)
+    _, _, out["bf16_step_ms"] = _dp_steps(bf16, bf16.init(torch.Generator().manual_seed(0), device=dev),
+                                          [_dp_batch(imgs4, grids4, b)], dev, timed=spec["timed_steps"])
+    out["bf16_peak_gib"] = _peak_gib(dev)
+
+    # ---- infer through the CLI: counts, launches, per-image files, int8
+    img_dir = Path(spec["img_dir"])
+    base = ["infer", str(CKPT), "--path-to-images", str(img_dir), "--half", "--no-use-tqdm",
+            "--data-parallel", *(["--device", spec["device"]] if spec["device"] else [])]
+    cmds = {
+        "count": [*base, "--count", "--batch-size", "1"],
+        "save_preds": [*base, "--save-preds", "--output-dir", str(work / f"preds_{rank}"),
+                       "--batch-size", "1"],
+        "quantize": [*base, "--quantize", "--count", "--save-preds", "--output-dir",
+                     str(work / f"preds_q_{rank}"), "--batch-size", str(spec["quant_batch"])],
+    }
+    scales = []
+    orig = infer_mod.quant_program_of_rank0
+
+    def spy(*a, **k):
+        qp = orig(*a, **k)
+        scales.append(qp["scales"].float().cpu().numpy().tobytes().hex())
+        return qp
+
+    infer_mod.quant_program_of_rank0 = spy
+    out["cli"] = {}
+    for name, argv in cmds.items():
+        log(f"rank {rank}: infer {name}")
+        STEM_LAUNCHES.clear()
+        ic.LAUNCHES.clear()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv)
+        out["cli"][name] = {"printed": [ln for ln in buf.getvalue().splitlines() if ln.startswith("[(")],
+                            "launches": {**dict(STEM_LAUNCHES), **dict(ic.LAUNCHES)}}
+        barrier()
+    infer_mod.quant_program_of_rank0 = orig
+    out["int8_scales_hex"] = scales
+
+    # ---- ConvNeXt-Small, full width and depth: state bytes and peak per rank
+    if spec["convnext"]:
+        from yogo_tpu_torch.models.yogo import YOGO
+        from yogo_tpu_torch.ops.grid import encode_label_grid_np
+
+        cnx = YOGO.create(tuple(spec["hw"]), 0.0425, 0.0555, 2, model_version="convnext_small")
+        cgrids = np.stack([encode_label_grid_np(bx, *cnx.grid)
+                           for bx in gen_golden_images(4, hw=tuple(spec["hw"]))[1]])
+        out["convnext"] = {}
+        for mode in ("replicated", "fsdp"):
+            log(f"rank {rank}: convnext {mode}")
+            _peak_reset(dev)
+            st, losses, _ = _dp_steps(cnx.with_compute_dtype(torch.bfloat16), perturbed_convnext(cnx, dev),
+                                      [_dp_batch(imgs4, cgrids, 4)] * 2, dev, fsdp=mode == "fsdp")
+            out["convnext"][mode] = {"losses": losses, "state_bytes": _state_bytes(st),
+                                     "peak_gib": _peak_gib(dev)}
+            del st
+    return out
+
+
+DP_WORKERS = {"world1": dp_worker_world1, "world2": dp_worker_world2}
+
+
+def dp_worker_main(argv) -> int:
+    """Entry of a PARALLEL_WORKER process: run the mode, write its result."""
+    import torch.distributed as dist
+
+    mode, work = argv[0], Path(argv[1])
+    sys.path.insert(0, str(REPO))
+    spec = json.loads((work / f"{mode}.json").read_text())
+    try:
+        out = DP_WORKERS[mode](work, spec)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    rank = int(os.environ.get("RANK", "0"))
+    (work / f"{mode}.{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def parallel_phase(device_arg, imgs4, golden, smi, *, hw=HW, batch=TIMING_BATCH, timed_steps=10,
+                   quant_batch=2, convnext=True):
+    """Phase 12: multi-process data parallelism (parallel/, the train step,
+    global BatchNorm, FSDP, `infer --data-parallel`). device_arg None runs
+    on the card; "cpu" rehearses the control flow (gloo everywhere), the
+    training parts at a small `hw`; `imgs4` are the 772x1032 golden frames
+    the CLI infers on. In order:
+      1. world 1: a float32 step (TF32 off) in a process group of world 1
+         (NCCL on the card) gives parameters bit-equal to the same step with
+         no group, and three bf16 steps at B=`batch` equal losses; then
+         timed bf16 steps in the group;
+      2. world 2, two ranks on the one card over gloo: f32, global batch 8
+         (4 a rank, rank 1's last row a masked pad row), two steps: losses
+         within rtol 1e-4 of one process on the same global batch, BN
+         running statistics equal on both ranks; the same under --fsdp
+         within rtol 2e-4 of the replicated run, its checkpoint read back
+         with the same shapes; bf16 at global batch `batch`: step ms and
+         peak GiB per rank (gloo's collectives are staged through the host);
+      3. `infer --count --data-parallel --half` through the CLI, world 2: rank
+         0 alone prints, the line of one process running the same command;
+         the NHWC stem launched once a batch on each rank; the per-image
+         files of `--save-preds` equal one process's; `--quantize`: rank 1
+         runs rank 0's scales bit for bit, the int8 golden gates hold;
+      4. ConvNeXt-Small (full width and depth, phase 10's seeded weights)
+         at B=4 a rank, two bf16 steps replicated and under --fsdp: each
+         rank's parameter + AdamW bytes and peak GiB.
+    Returns the numbers; every check raises."""
+    import contextlib
+    import io
+
+    from yogo_tpu_torch.__main__ import main as cli
+    from yogo_tpu_torch.models.yogo import resolve_device
+    from yogo_tpu_torch.tools.golden_scene import int8_gates
+
+    dev = resolve_device(device_arg)
+    on_card = dev.type == "cuda"
+    tmp_ctx = tempfile.TemporaryDirectory()
+    work = Path(tmp_ctx.name)
+    img_dir = work / "golden"
+    img_dir.mkdir()
+    for i in range(len(imgs4)):
+        write_png_gray(img_dir / f"g{i}.png", imgs4[i, 0])
+    spec = {"device": device_arg, "hw": list(hw), "batch": batch, "timed_steps": timed_steps,
+            "img_dir": str(img_dir), "quant_batch": quant_batch, "convnext": convnext,
+            "backend": "nccl" if on_card else "gloo"}
+    out = {}
+    t_phase = time.time()
+
+    # ---------------------------------------------------------- 1. world 1
+    (w1,) = run_ranks("world1", spec, 1, work)
+    if not w1["bit_equal"] or w1["f32_losses"][0] != w1["f32_losses"][1]:
+        raise AssertionError(f"world 1 in a {spec['backend']} group differs from no group: "
+                             f"losses {w1['f32_losses']}, parameters by {w1['max_abs_diff']}")
+    if w1["bf16_losses"][0] != w1["bf16_losses"][1] or w1["all_reduce_probe"] != [1.0, 1.0]:
+        raise AssertionError(f"world 1 bf16 losses {w1['bf16_losses']}, probe {w1['all_reduce_probe']}")
+    ms1 = statistics.median(w1["step_ms"]) if w1["step_ms"] else None
+    out["world1"] = {"backend": spec["backend"], "bit_equal": True, "f32_loss": w1["f32_losses"][0],
+                     "bf16_losses": w1["bf16_losses"][0], "bf16_step_ms": ms1,
+                     "bf16_img_per_s": batch / ms1 * 1e3 if ms1 else None, "peak_gib": w1["peak_gib"]}
+    log(f"parallel world 1 ({spec['backend']}, {smi}): " + json.dumps(out["world1"]))
+
+    # ------------------------------- 2.-4. world 2 over gloo on one device
+    # the single-process references first: the f32 steps on the global
+    # batch, the CLI commands the ranks run
+    _, model, imgs_hw, grids4 = _dp_setup({"device": device_arg, "hw": list(hw)})
+    glob = [_dp_batch(imgs_hw, grids4, F32_GLOBAL_BATCH, pad_last=True)] * 2
+    _, ref_losses, _ = _dp_steps(model, model.init(torch.Generator().manual_seed(0), device=dev), glob, dev)
+    single = {}
+    dev_flag = ["--device", device_arg] if device_arg else []
+    for name, extra in (("count", ["--count", "--batch-size", "1"]),
+                        ("save_preds", ["--save-preds", "--output-dir", str(work / "preds_single"),
+                                        "--batch-size", "1"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(["infer", str(CKPT), "--path-to-images", str(img_dir), "--half", "--no-use-tqdm",
+                 *dev_flag, *extra])
+        single[name] = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[(")]
+    if on_card:
+        torch.cuda.empty_cache()
+
+    w2 = run_ranks("world2", spec, 2, work)
+    # f32 against one process, BN statistics across the ranks
+    for r in w2:
+        np.testing.assert_allclose(r["f32_losses"], ref_losses, rtol=1e-4)
+        np.testing.assert_allclose(r["fsdp_losses"], r["f32_losses"], rtol=2e-4)
+    if w2[0]["bn_stats"] != w2[1]["bn_stats"]:
+        raise AssertionError("BN running statistics differ between the ranks")
+    if not (w2[0]["fsdp_ckpt"]["same_shapes"] and w2[0]["fsdp_ckpt"]["opt_state"]
+            and w2[0]["fsdp_ckpt"]["step"] == 2):
+        raise AssertionError(f"--fsdp checkpoint: {w2[0]['fsdp_ckpt']}")
+    out["world2_f32"] = {"losses": w2[0]["f32_losses"], "single_process": ref_losses,
+                         "max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(w2[0]["f32_losses"], ref_losses)),
+                         "fsdp_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                                  zip(w2[0]["fsdp_losses"], w2[0]["f32_losses"])),
+                         "fsdp_losses": w2[0]["fsdp_losses"], "bn_equal_on_ranks": True,
+                         "fsdp_ckpt": w2[0]["fsdp_ckpt"]}
+    log("parallel f32, world 2 (gloo) against one process: " + json.dumps(out["world2_f32"]))
+    # the CLI: rank 0 alone prints, one process's line; one stem launch a batch
+    cli_r = [r["cli"] for r in w2]
+    if cli_r[0]["count"]["printed"] != single["count"] or cli_r[1]["count"]["printed"]:
+        raise AssertionError(f"infer --count --data-parallel printed {cli_r[0]['count']['printed']} / "
+                             f"{cli_r[1]['count']['printed']}; one process: {single['count']}")
+    rounds = -(-len(imgs4) // 2)  # --batch-size 1, two images a rank
+    for r, c in enumerate(cli_r):
+        if on_card and c["count"]["launches"].get("stem_nhwc", 0) != rounds:
+            raise AssertionError(f"rank {r}: stem launches {c['count']['launches']} for {rounds} batches")
+    per_image = {}
+    for name in ("single", "0", "1"):
+        d = work / ("preds_single" if name == "single" else f"preds_{name}")
+        for f in sorted(d.glob("*.txt")):
+            per_image.setdefault(name, {})[f.name] = f.read_text()
+    merged = {**per_image.get("0", {}), **per_image.get("1", {})}
+    if merged != per_image["single"] or set(per_image.get("0", {})) & set(per_image.get("1", {})):
+        raise AssertionError("infer --save-preds --data-parallel: files differ from one process's")
+    counts_per_image = [len(t.splitlines()) for _, t in sorted(merged.items())]
+    # int8: rank 0's scales on both ranks, the golden gates on the merged files
+    if len(w2[0]["int8_scales_hex"]) != 1 or w2[0]["int8_scales_hex"] != w2[1]["int8_scales_hex"]:
+        raise AssertionError("the int8 scales differ between the ranks")
+    dets = []
+    for i in range(len(imgs4)):
+        for r in range(2):
+            f = work / f"preds_q_{r}" / f"g{i}.txt"
+            if f.exists():
+                rows = np.loadtxt(f, ndmin=2) if f.read_text().strip() else np.zeros((0, 5))
+                d = np.zeros((len(rows), 5 + 2), np.float32)
+                d[:, :4] = rows[:, 1:5]
+                d[np.arange(len(rows)), 5 + rows[:, 0].astype(int)] = 1.0
+                dets.append(d)
+    gates = int8_gates(dets, golden)
+    if gates["failures"]:
+        raise AssertionError(f"infer --quantize --data-parallel golden gates: {gates}")
+    for r, c in enumerate(cli_r):
+        if on_card and c["quantize"]["launches"].get("int8_conv", 0) < 3:
+            raise AssertionError(f"rank {r}: int8 conv launches {c['quantize']['launches']}")
+    out["infer"] = {"printed": cli_r[0]["count"]["printed"], "single_process": single["count"],
+                    "per_image": counts_per_image,
+                    "launches": {f"rank{r}": {k: c[k]["launches"] for k in c} for r, c in enumerate(cli_r)},
+                    "int8_scales_equal": True, "int8_gates": gates,
+                    "int8_printed": cli_r[0]["quantize"]["printed"]}
+    log("parallel infer --data-parallel, world 2: " + json.dumps(out["infer"]))
+    ms2 = [statistics.median(r["bf16_step_ms"]) for r in w2] if w2[0]["bf16_step_ms"] else None
+    out["world2_bf16"] = {
+        "backend": "gloo (collectives staged through the host, not NCCL's)",
+        "global_batch": batch, "step_ms_by_rank": ms2,
+        "img_per_s": batch / max(ms2) * 1e3 if ms2 else None,
+        "peak_gib_by_rank": [r["bf16_peak_gib"] for r in w2]}
+    log(f"parallel bf16 steps, world 1 vs world 2 ({smi}): "
+        + json.dumps({"world1": out["world1"], "world2": out["world2_bf16"]}))
+    if convnext:
+        out["convnext"] = {f"rank{r['rank']}": r["convnext"] for r in w2}
+        log(f"parallel ConvNeXt-Small B=4 a rank, replicated vs --fsdp ({smi}): "
+            + json.dumps(out["convnext"]))
+    out["seconds"] = time.time() - t_phase
+    tmp_ctx.cleanup()
+    return out
+
+
 def main() -> int:
     # ------------------------------------------------------------ 1. device
     if not torch.cuda.is_available():
@@ -2232,7 +2719,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["export"] = export_phase(None, imgs4, want_per_image=want_per_image)
 
-    # ----------------------------------------------------------- 12. report
+    # ---------------------------------------------------------- 12. parallel
+    torch.cuda.empty_cache()
+    report["parallel"] = parallel_phase(None, imgs4, golden, smi)
+    dp_launches = report["parallel"]["infer"]["launches"]
+
+    # ----------------------------------------------------------- 13. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -2247,6 +2739,8 @@ def main() -> int:
                                         for b, n in serve_launches.items()},
             "launches_convnext_count_path": report["convnext"]["bf16"]["stem_launches"],
             "launches_export": report["export"]["stem_launches"],
+            "launches_infer_data_parallel_by_rank": {
+                r: n["count"].get(f"stem_{layout}", 0) for r, n in dp_launches.items()},
             "max_abs_err": max_err[layout],
             "ms": timing[layout]["ms"],
             "plain_ms": timing[layout]["plain_ms"],
@@ -2272,6 +2766,8 @@ def main() -> int:
         "launches": int8_launches["infer"]["int8_conv"],
         "launches_test_quantize": report["cli"]["int8_conv_launches_by_command"]["test --quantize"],
         "launches_serve_quantize_b64": int8_launches["serve"]["int8_conv"],
+        "launches_infer_quantize_data_parallel_by_rank": {
+            r: n["quantize"].get("int8_conv", 0) for r, n in dp_launches.items()},
         "max_abs_err": report["int8"]["max_abs_err"],
         # the three quantized blocks of one B=64 forward, summed; by block beside
         "ms": total("ms"),
@@ -2303,4 +2799,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [PARALLEL_WORKER]:
+        sys.exit(dp_worker_main(sys.argv[2:]))
     sys.exit(main())

@@ -104,9 +104,12 @@ def test_global_parser_dispatches_three_subcommands_and_infer_keeps_its_flags(ca
         with pytest.raises(SystemExit):
             p.parse_args(bad)
     # the flags of paths not ported yet parse, and the command raises
-    for argv, item in ((["serve", "m.ckpt", "--spatial-parallel", "2"], "item 15"),):
+    for argv, item in ((["serve", "m.ckpt", "--spatial-parallel", "2"], "item 15b"),):
         with pytest.raises(NotImplementedError, match=item):
             main([*argv, "--device", "cpu"])
+    # the parallel flags that are ported parse
+    assert p.parse_args(["train", "d", "--fsdp"]).fsdp
+    assert p.parse_args(["infer", "m.ckpt", "--path-to-images", "d", "--data-parallel"]).data_parallel
 
 
 # ------------------------------------------------------------ train and test

@@ -149,10 +149,18 @@ def test_draw_boxes_and_a_malformed_image(img_dir, tmp_path):
     assert sorted(p.name for p in (tmp_path / "o").iterdir()) == ["i002.txt"]
 
 
-def test_unported_options_raise_naming_their_roadmap_items(img_dir, tmp_path):
-    for kw, item in (({"data_parallel": True}, "item 15"), ({"spatial_parallel": 2}, "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            predict(CKPT, path_to_images=img_dir, count_predictions=True, device="cpu", **kw)
+def test_unported_options_raise_naming_their_roadmap_items(img_dir, tmp_path, capsys):
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        predict(CKPT, path_to_images=img_dir, count_predictions=True, device="cpu",
+                spatial_parallel=2)
+    # --data-parallel in one process is the single-device path (the JAX
+    # package with one device builds no mesh)
+    counts = []
+    for kw in ({}, {"data_parallel": True}):
+        predict(CKPT, path_to_images=img_dir, count_predictions=True, device="cpu", batch_size=4,
+                **kw)
+        counts.append(capsys.readouterr().out.strip())
+    assert counts[0] == counts[1] and counts[0].startswith("[('cell',")
     with pytest.raises(ValueError, match="at the same time"):
         predict(CKPT, path_to_images=img_dir, save_preds=True, draw_boxes=True,
                 output_dir=str(tmp_path), device="cpu")

@@ -1,6 +1,6 @@
 """The hand-off of loader batches to the device (the one-device counterpart
-of yogo_tpu/parallel/mesh.py:295-396: prefetch_to_device, pad_batch_to_size,
-pad_batch_to_multiple).
+of yogo_tpu/parallel/mesh.py:295-373, prefetch_to_device; the pad helpers
+are parallel/mesh.py's).
 
 The loader yields numpy batches. On a CUDA device each batch is copied
 into a reused pinned host buffer and from there, with a non-blocking copy
@@ -29,29 +29,7 @@ from typing import Iterable, Iterator, List, Tuple
 import numpy as np
 import torch
 
-Batch = Tuple[np.ndarray, np.ndarray, np.ndarray]
-
-
-def pad_batch_to_size(
-    imgs: np.ndarray, labels: np.ndarray, mask: np.ndarray, target: int
-) -> Batch:
-    """Pad the batch axis to exactly `target` rows; padded rows masked out."""
-    b = imgs.shape[0]
-    if target == b:
-        return imgs, labels, mask
-    pad = target - b
-    imgs = np.concatenate([imgs, np.repeat(imgs[:1], pad, axis=0)])
-    labels = np.concatenate([labels, np.repeat(labels[:1], pad, axis=0)])
-    mask = np.concatenate([mask, np.zeros(pad, mask.dtype)])
-    return imgs, labels, mask
-
-
-def pad_batch_to_multiple(
-    imgs: np.ndarray, labels: np.ndarray, mask: np.ndarray, multiple: int
-) -> Batch:
-    """Pad the batch axis so `multiple` divides it; padded rows masked out."""
-    target = -(-imgs.shape[0] // multiple) * multiple
-    return pad_batch_to_size(imgs, labels, mask, target)
+from yogo_tpu_torch.parallel.mesh import Batch, pad_batch_to_multiple, pad_batch_to_size  # noqa: F401
 
 
 def stack_group(group: List[Batch], accumulate: int) -> Batch:

@@ -1,5 +1,5 @@
 """Inference driver: `python -m yogo_tpu_torch infer` and predict()
-(port of yogo_tpu/infer.py, one device).
+(port of yogo_tpu/infer.py).
 
   - fixed-shape batches: the ragged last batch is padded by repeating its
     first image, and the padding is masked out;
@@ -13,7 +13,14 @@
     full decoded slice instead, so the artifacts are those of the full
     tensor, bit for bit; `fetch_top_k=0` and return_full_predictions fetch
     the full decoded tensor;
-  - a one-thread prefetcher decodes the next batch while this one computes.
+  - a one-thread prefetcher decodes the next batch while this one computes;
+  - `--data-parallel` under torchrun (a process group of N > 1 ranks): rank
+    p takes the p-th contiguous chunk of the sorted image list, every rank
+    runs as many batch rounds (fully masked ones where its chunk is
+    shorter), the counts are summed over the ranks and printed by rank 0,
+    and each rank writes the artifacts of its own images (the .npy as
+    `<name>.p<rank>.npy`, image ids global). In one process it is the
+    single-device path, as the JAX package with one device builds no mesh.
 
 Output artifacts keep the reference schemas: YOLO-format txt prediction
 files, the scope (8+C, N) .npy array with its JSON sidecar, drawn images and
@@ -38,7 +45,11 @@ from yogo_tpu_torch.data.loader import choose_dataloader_num_workers
 from torch import nn
 
 from yogo_tpu_torch.models.yogo import YOGO, resolve_device
-from yogo_tpu_torch.ops.quant import family_quant_forward, family_quant_plan
+from yogo_tpu_torch.ops.quant import (
+    family_quant_forward,
+    family_quant_plan,
+    quant_program_of_rank0,
+)
 from yogo_tpu_torch.ops.postprocess import (
     INFER_COUNT_MAX_DETECTIONS,
     count_cells_for_formatted_preds,
@@ -49,6 +60,7 @@ from yogo_tpu_torch.ops.postprocess import (
     scatter_candidates,
     select_top_candidates_raw,
 )
+from yogo_tpu_torch.parallel.distributed import all_reduce_sum, local_device, process_shard
 from yogo_tpu_torch.utils.checkpoint import load_any
 from yogo_tpu_torch.utils.weights import state_dict_from_flax
 
@@ -196,11 +208,14 @@ def needs_calibration(model: YOGO) -> bool:
 def quantize_stack(model: YOGO, stack: nn.Module, calib) -> dict:
     """The int8 program of a loaded stack, on the stack's device,
     calibrated on `calib` (a list of NCHW batches), which may be empty only
-    when the program needs no calibration."""
-    if needs_calibration(model) and not calib:
+    when the program needs no calibration. In a process group rank 0
+    calibrates on its `calib` and every rank runs its program (the other
+    ranks' `calib` is not read)."""
+    if needs_calibration(model) and not calib and process_shard()[0] == 0:
         raise ValueError("--quantize needs at least one image to calibrate")
-    build_qp = family_quant_plan(model, stack, device=next(stack.parameters()).device)[0]
-    return build_qp(calib)
+    device = next(stack.parameters()).device
+    build_qp, _, n_scales, _ = family_quant_plan(model, stack, device=device)
+    return quant_program_of_rank0(build_qp, n_scales, calib, device)
 
 
 def save_predictions(fnames, batch_preds, obj_thresh=0.5, iou_thresh=0.5):
@@ -267,17 +282,33 @@ def predict(
     fetch_top_k: int = 512,
     device=None,
 ) -> Optional[np.ndarray]:
-    """Mirrors yogo_tpu.infer.predict on one device (default CUDA;
+    """Mirrors yogo_tpu.infer.predict (default device: the rank's card;
     device="cpu" runs on the CPU). Prints the per-class counts with
     count_predictions, writes the artifacts asked for, and returns
     (N, 5+C, Sy, Sx) f32 with return_full_predictions. `quantize` runs the
     int8 program (ops/quant.py), calibrated on the run's first batch_size
-    images; `data_parallel` / `spatial_parallel` wait for the parallelism
-    port (ROADMAP.md Queue 1 item 15) and raise."""
-    if data_parallel or spatial_parallel > 1:
+    images (rank 0's, under data_parallel in a process group: every rank
+    runs its program). `data_parallel` splits the images over the ranks of
+    the process group (see the module docstring); `spatial_parallel` > 1
+    waits for ROADMAP.md Queue 1 item 15b and raises."""
+    rank, world = process_shard()
+    mh = data_parallel and world > 1
+    if world > 1 and (data_parallel or spatial_parallel > 1):
+        if not data_parallel:
+            raise ValueError(
+                "spatial_parallel-only inference is single-process; add "
+                "data_parallel to shard images across processes too"
+            )
+        if return_full_predictions:
+            raise ValueError(
+                "return_full_predictions is single-process only (each "
+                "process holds only its own images' predictions); use "
+                "save_npy and merge the per-process .npy files"
+            )
+    if spatial_parallel > 1:
         raise NotImplementedError(
-            "--data-parallel / --spatial-parallel are not ported yet "
-            "(ROADMAP.md Queue 1 item 15); the port infers on one device"
+            "--spatial-parallel (row-split convs with halo exchange) is not "
+            "ported yet (ROADMAP.md Queue 1 item 15b)"
         )
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -300,7 +331,7 @@ def predict(
             f"filetype; got {output_img_ftype}"
         )
 
-    device = resolve_device(device)
+    device = local_device(device) if world > 1 else resolve_device(device)
     pred = Predictor.from_checkpoint(
         path_to_ckpt, half=half, device=device, vertical_crop_height=vertical_crop_height,
         obj_thresh=obj_thresh, iou_thresh=iou_thresh,
@@ -333,16 +364,21 @@ def predict(
     )
     n_images = len(dataset)
     num_workers = choose_dataloader_num_workers(n_images, requested_num_workers=requested_num_workers)
+    # rank p's contiguous chunk of the sorted image list (everything in
+    # one process); clamped, so a rank past the end has an empty chunk
+    per_rank = -(-n_images // world) if mh else n_images
+    chunk_lo = min(n_images, rank * per_rank) if mh else 0
+    chunk_hi = min(n_images, chunk_lo + per_rank)
 
     if quantize:
         if n_images == 0:
             raise ValueError("--quantize needs at least one image to calibrate")
         # calibrate on the run's own leading images, decoded once more by
         # the batch loop below (yogo_tpu/infer.py:311-350); a program with
-        # no int8 conv decodes none
+        # no int8 conv decodes none, and neither does a rank other than 0
         calib = []
-        if needs_calibration(model):
-            idxs = range(min(batch_size, n_images))
+        if needs_calibration(model) and rank == 0:
+            idxs = range(chunk_lo, min(chunk_lo + batch_size, chunk_hi))
             if num_workers > 0:
                 with ThreadPoolExecutor(max_workers=num_workers) as pool:
                     items = list(pool.map(dataset.__getitem__, idxs))
@@ -377,8 +413,16 @@ def predict(
 
     decode_pool = ThreadPoolExecutor(max_workers=num_workers) if num_workers > 0 else None
 
+    def zero_batch():
+        # a fully masked round of a rank whose chunk is shorter
+        ch = 3 if model.is_rgb else 1
+        dtype = np.float32 if model.normalize_images else np.uint8
+        return np.zeros((batch_size, ch, img_h, int(img_w)), dtype), [], 0
+
     def load_batch(start: int):
-        idxs = range(start, min(start + batch_size, n_images))
+        idxs = range(start, min(start + batch_size, chunk_hi))
+        if len(idxs) == 0:
+            return zero_batch()
         if decode_pool is not None:
             items = list(decode_pool.map(dataset.__getitem__, idxs))
         else:
@@ -394,11 +438,17 @@ def predict(
         try:
             from tqdm import tqdm
 
-            pbar = tqdm(unit="images", total=n_images)
+            pbar = tqdm(unit="images", total=chunk_hi - chunk_lo)
         except ImportError:
             pass
 
-    starts = list(range(0, n_images, batch_size))
+    if mh:
+        # as many rounds on every rank (the JAX package's collective
+        # alignment): a shorter chunk runs trailing fully masked batches
+        n_rounds = -(-per_rank // batch_size) if n_images else 0
+        starts = [chunk_lo + k * batch_size for k in range(n_rounds)]
+    else:
+        starts = list(range(0, n_images, batch_size))
     prefetcher = ThreadPoolExecutor(max_workers=1)
     try:
         pending = prefetcher.submit(load_batch, starts[0]) if starts else None
@@ -409,7 +459,8 @@ def predict(
                 imgs, names, real = pending.result()
             except Exception as e:
                 warnings.warn(f"got error {e}; continuing")
-                imgs = None
+                # a rank of a group keeps its round count: a masked batch
+                imgs, names, real = zero_batch() if mh else (None, None, 0)
             pending = prefetcher.submit(load_batch, starts[bi + 1]) if bi + 1 < len(starts) else None
             if imgs is None:
                 continue
@@ -487,14 +538,21 @@ def predict(
         )
 
     if count_predictions:
-        counts = host_counts if needs_full else tot_counts.cpu().numpy()
-        print(list(zip(class_names or range(num_classes), map(int, counts))))
+        counts = torch.from_numpy(host_counts).to(device) if needs_full else tot_counts
+        if mh:
+            counts = all_reduce_sum(counts)  # each rank counted its own images
+        if rank == 0 or not mh:
+            print(list(zip(class_names or range(num_classes), map(int, counts.cpu().numpy()))))
 
     if save_npy and np_results:
         if path_to_images:
             filename = Path(path_to_images).resolve().parent.stem
         else:
             filename = Path(path_to_zarr).resolve().stem
+        if mh:
+            # one file a rank, of its own images (ids stay global):
+            # concatenated they are the single-process file
+            filename = f"{filename}.p{rank}"
         base = Path(output_dir).resolve() if output_dir else Path.cwd().resolve()
         fp = base / f"{filename}.npy"
         np.save(fp, np.hstack(np_results))

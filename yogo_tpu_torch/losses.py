@@ -3,7 +3,8 @@
 Every term is computed over the full (B, Sy, Sx) grid and weighted by the
 object mask, so shapes are static and no boolean gather runs on the device
 (reference: yogo/yogo_loss.py:38-129 gathers; same values and gradients).
-Each term is summed over the batch and divided by the batch size:
+Each term is summed over the batch and divided by the batch size (the
+global batch's real-image count in a data-parallel step):
   1. iou_weight * CIoU(clamp(pred_xyxy, 0, 1), label_xyxy) on object cells,
      skipping degenerate zero-width/height predicted boxes,
   2. classify_weight * masked cross-entropy with label smoothing,
@@ -44,11 +45,15 @@ def yogo_loss(
     classify_weight: float = 1.0,
     label_smoothing: float = 0.01,
     image_mask: Optional[torch.Tensor] = None,
+    n_images: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """preds: (B, 5+C, Sy, Sx) decoded predictions (class logits);
     labels: (B, 6, Sy, Sx) [mask, x1, y1, x2, y2, class];
     image_mask: optional (B,) 0/1 validity for padded batches - padded
     images contribute nothing and the normaliser is max(real images, 1).
+    n_images: the real-image count to divide by instead of this batch's -
+    a rank of a data-parallel step passes the global batch's, so the sum of
+    the ranks' losses (and gradients) is the global batch's.
     Returns (total loss, components dict of f32 scalars)."""
     preds = preds.float()
     labels = labels.float()
@@ -60,6 +65,8 @@ def yogo_loss(
         image_mask = image_mask.float()
         batch_size = torch.clamp(image_mask.sum(), min=1.0)
         img_w = image_mask[:, None, None]
+    if n_images is not None:
+        batch_size = torch.clamp(n_images.float(), min=1.0)
 
     mask = labels[:, 0] * img_w  # (B, Sy, Sx)
 

@@ -59,6 +59,7 @@ from yogo_tpu_torch.metrics.metrics import (
 )
 from yogo_tpu_torch.models.yogo import resolve_device
 from yogo_tpu_torch.ops.postprocess import format_preds_batched
+from yogo_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
 DEFAULT_MAP_SCORE_BINS = 4096
 # matching IoU is computed in f32 on device; clip coordinates so the area
@@ -420,8 +421,12 @@ class DeviceMetrics:
         )
 
     def compute(self) -> Tuple:
-        # the one host transfer of the engine: the whole state, once
-        st = {k: v.cpu().numpy() for k, v in self._state.items()}
+        # the one host transfer of the engine: the whole state, once. In a
+        # process group every rank scored its own rows: the counters are
+        # summed over the ranks first (float sums in float64), so every
+        # rank computes the global batch's metrics, as the JAX package's
+        # SPMD update over the sharded batch does
+        st = {k: v.cpu().numpy() for k, v in self._reduced_state().items()}
         if st["gt_overflow"] > 0 or st["det_overflow"] > 0:
             warnings.warn(
                 f"DeviceMetrics capacity overflow: {int(st['gt_overflow'])} "
@@ -464,6 +469,15 @@ class DeviceMetrics:
             extra_by_class=st["extra_by_class"].astype(np.int64),
             total_true_objects=int(st["total_matched"]),
         )
+
+    def _reduced_state(self) -> Dict[str, torch.Tensor]:
+        if world_size() == 1:
+            return self._state
+        out = {}
+        for k, v in self._state.items():
+            v = v.to(torch.float64) if v.is_floating_point() else v.clone()
+            out[k] = all_reduce_sum(v)
+        return out
 
     def forward(self, preds, labels) -> Tuple:
         self.update(preds, labels)

@@ -7,8 +7,10 @@
     conv{i} / bn{i} like the flax tree (utils/weights.py carries weights
     both ways). `train` / `bn_frozen` are arguments of the forward, as in
     flax, not the module's mode: BN batch statistics with flax's running
-    update (biased variance), channel dropout from an explicit generator,
-    and per-block or whole-stack activation checkpointing;
+    update (biased variance) - over every rank's rows in a process group
+    of N > 1 ranks, as flax's BatchNorm under a batch-sharded jit -,
+    channel dropout from an explicit generator, and per-block or
+    whole-stack activation checkpointing;
   - `ConvNeXtSmall` / `ConvNeXtBlock`: the convnext family (models/yogo.py
     of the JAX package, flax parameter names), its residual stream in
     NHWC float32 whatever the compute dtype, with flax's LayerNorm
@@ -43,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from yogo_tpu_torch.models.defns import ConvSpec, ModelDefn, get_model_defn
 from yogo_tpu_torch.ops.grid import WH_CLAMP, cell_offsets, grid_size
 from yogo_tpu_torch.ops.stem import STEM_CHANNELS, fold_stem_params, fused_stem_nchw
+from yogo_tpu_torch.parallel.distributed import all_reduce_sum_autograd, world_size
 
 LEAKY_SLOPE = 0.01
 REMAT_MODES = ("none", "blocks", "full")
@@ -87,6 +90,8 @@ def _batch_norm(
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps
         )
+    if world_size() > 1:
+        return _global_batch_norm(bn, x, update_stats)
     n = x.numel() // x.shape[1]
     # a recomputation runs the very same op (activation checkpointing
     # counts the tensors it saves) into buffers that are thrown away
@@ -97,6 +102,35 @@ def _batch_norm(
         with torch.no_grad():
             bn.running_var.mul_(1.0 - bn.momentum).add_(scratch, alpha=(n - 1) / n)
     return y
+
+
+def _global_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+    """Batch statistics over every rank's rows, as flax's BatchNorm computes
+    them under a batch-sharded jit (XLA inserts the collectives): the
+    per-channel f32 sums of x and x^2 and the element count, combined by
+    ONE autograd-aware all_reduce, so the backward of the statistics
+    crosses the ranks too; flax's fast variance max(E[x^2] - E[x]^2, 0);
+    the biased global variance and the global mean folded into the running
+    statistics, identically on every rank. (nn.SyncBatchNorm runs only on
+    a card and folds the unbiased variance.)"""
+    xf = x.float()
+    c = xf.shape[1]
+    local = torch.cat([
+        xf.sum((0, 2, 3)),
+        (xf * xf).sum((0, 2, 3)),
+        xf.new_full((1,), xf.numel() // c),
+    ])
+    total = all_reduce_sum_autograd(local)
+    n = total[2 * c]
+    mean = total[:c] / n
+    var = torch.clamp_min(total[c:2 * c] / n - mean * mean, 0.0)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + bn.bias[None, :, None, None]
+    if update_stats:
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+    return y.to(x.dtype)
 
 
 class ConvStack(nn.Module):
@@ -132,6 +166,7 @@ class ConvStack(nn.Module):
         bn_frozen: bool = False,
         generator: Optional[torch.Generator] = None,
         remat: str = "none",
+        batch_rows: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         """(B, C, H, W) in the compute dtype -> (B, 5+C, Sy, Sx) head logits.
         start_block > 0 skips blocks the fused stem already computed.
@@ -140,6 +175,9 @@ class ConvStack(nn.Module):
         the running ones, and drops whole channels per sample on the blocks
         whose spec has dropout, with masks drawn from `generator` (on its
         own device; None draws from the global generator of x's device).
+        batch_rows=(start, global_batch) draws the masks of a global batch
+        and keeps rows [start, start + B): a rank of a data-parallel run
+        then drops what one process running the whole batch would.
         bn_frozen=True is the fine-tune BN-freeze: running statistics
         normalise and are never updated while the rest trains.
 
@@ -151,7 +189,7 @@ class ConvStack(nn.Module):
             raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
         fmt = torch.channels_last if self.channels_last else torch.contiguous_format
         x = x.contiguous(memory_format=fmt)
-        masks = self._dropout_masks(x, start_block, generator) if train else {}
+        masks = self._dropout_masks(x, start_block, generator, batch_rows) if train else {}
         batch_stats = train and not bn_frozen
 
         def run(x, first, last, calls):
@@ -194,17 +232,25 @@ class ConvStack(nn.Module):
         return x
 
     def _dropout_masks(
-        self, x: torch.Tensor, start_block: int, generator: Optional[torch.Generator]
+        self,
+        x: torch.Tensor,
+        start_block: int,
+        generator: Optional[torch.Generator],
+        batch_rows: Optional[Tuple[int, int]] = None,
     ) -> dict:
         """{block: (B, C, 1, 1) mask of 0 or 1/(1-p)} in x's dtype: whole
         channels per sample (Dropout2d), drawn in block order before any
-        block runs so that a recomputation reuses them."""
+        block runs so that a recomputation reuses them; rows
+        [start, start + B) of a global batch's draw with batch_rows."""
         draw_on = x.device if generator is None else generator.device
+        b = x.shape[0]
+        start, n_rows = batch_rows if batch_rows is not None else (0, b)
         masks = {}
         for i, s in enumerate(self.blocks):
             if i < start_block or s.dropout <= 0:
                 continue
-            u = torch.rand((x.shape[0], s.out, 1, 1), generator=generator, device=draw_on)
+            u = torch.rand((n_rows, s.out, 1, 1), generator=generator, device=draw_on)
+            u = u[start: start + b]
             keep = (u >= s.dropout).to(torch.float32) / (1.0 - s.dropout)
             masks[i] = keep.to(device=x.device, dtype=x.dtype)
         return masks
@@ -290,9 +336,10 @@ class ConvNeXtSmall(nn.Module):
     tree (utils/weights.py maps them one to one). The compute dtype is the
     input's: YOGO.apply casts the input to it.
 
-    There is no BatchNorm and no dropout: `train`, `bn_frozen` and
-    `generator` are accepted and change nothing, as in flax. remat="blocks"
-    checkpoints each ConvNeXtBlock, "full" the whole forward. (In the JAX
+    There is no BatchNorm and no dropout: `train`, `bn_frozen`,
+    `generator` and `batch_rows` are accepted and change nothing, as in
+    flax. remat="blocks" checkpoints each ConvNeXtBlock, "full" the whole
+    forward. (In the JAX
     package "blocks" saves the activations named `yogo_block`, which this
     family does not name, so there it recomputes as much as "full";
     recomputation changes memory, never values.)"""
@@ -322,6 +369,7 @@ class ConvNeXtSmall(nn.Module):
         bn_frozen: bool = False,
         generator: Optional[torch.Generator] = None,
         remat: str = "none",
+        batch_rows: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         """(B, C, H, W) in the compute dtype -> (B, 5+C, Sy, Sx) head
         logits in the compute dtype (a channels_last view)."""
@@ -636,6 +684,7 @@ class YOGO:
         decode: bool = True,
         generator: Optional[torch.Generator] = None,
         remat: str = "none",
+        batch_rows: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         """Raw input -> decoded (B, 5+C, Sy, Sx) predictions, or with
         decode=False the undecoded NHWC head (B, Sy, Sx, 5+C) in the compute
@@ -646,8 +695,9 @@ class YOGO:
         builds the graph: BN batch statistics are used and folded into the
         stack's running statistics in place (flax returns them as a new
         state; here the module holds them), channel dropout draws from
-        `generator`, and `remat` checkpoints activations (see
-        ConvStack.forward and ConvNeXtSmall). tuning=True freezes BN: it
+        `generator` (rows `batch_rows` of a global batch's masks), and
+        `remat` checkpoints activations (see ConvStack.forward and
+        ConvNeXtSmall). tuning=True freezes BN: it
         normalises with the running statistics and never updates them, in
         either mode (reference: yogo/model.py:67-70). ConvNeXt has neither
         BN nor dropout."""
@@ -666,7 +716,7 @@ class YOGO:
                     x = x.float()
                 out = stack(
                     x.to(self.compute_dtype), train=train, bn_frozen=tuning,
-                    generator=generator, remat=remat,
+                    generator=generator, remat=remat, batch_rows=batch_rows,
                 )
             raw = out.permute(0, 2, 3, 1)  # NHWC head
             if not decode:

@@ -47,6 +47,7 @@ from yogo_tpu_torch.models.defns import ConvSpec
 from yogo_tpu_torch.models.yogo import YOGO, ConvStack, _activation, no_tf32, resolve_device
 from yogo_tpu_torch.ops.int8_conv import int8_conv, pack_weights, padded_channels
 from yogo_tpu_torch.ops.stem import fused_stem_nchw
+from yogo_tpu_torch.parallel.distributed import broadcast_from_rank0, process_shard
 from yogo_tpu_torch.utils.weights import flax_from_state_dict
 
 # conv_stack activations this path is validated for; anything else must
@@ -396,6 +397,27 @@ def family_quant_plan(model, variables, device=None):
         )
 
     return build_qp, quantized_forward, n_scales, len(skip) == n_scales
+
+
+def quant_program_of_rank0(build_qp, n_scales: int, calib_batches, device) -> Dict[str, Any]:
+    """The int8 program every rank of a process group runs: rank 0
+    calibrates on `calib_batches` (its leading images), its payload
+    qp["scales"] is broadcast, and every other rank builds the same program
+    from it, as the JAX package broadcasts process 0's scales
+    (yogo_tpu/infer.py:330-348). build_qp / n_scales are
+    family_quant_plan's; the other ranks' calib_batches are not read. At
+    world 1, build_qp(calib_batches)."""
+    rank, world = process_shard()
+    if world == 1:
+        return build_qp(calib_batches)
+    qp = build_qp(calib_batches) if rank == 0 else None
+    payload = (
+        qp["scales"].to(device=device, dtype=torch.float32).clone()
+        if rank == 0
+        else torch.zeros(n_scales, dtype=torch.float32, device=device)
+    )
+    broadcast_from_rank0(payload)
+    return qp if rank == 0 else build_qp([], act_scales=payload.cpu().numpy())
 
 
 def quantize_conv_stack(

@@ -39,8 +39,10 @@ format_preds on the full decoded forward of the same pixels, bit for bit.
 
 `--quantize` serves the int8 program (ops/quant.py), calibrated on up to
 max(batch_size, 8) images of `--calibration-images`; the server keeps those
-batches, and a hot reload recalibrates on them. Multi-device serving waits
-for the parallelism port (ROADMAP.md Queue 1 item 15) and raises.
+batches, and a hot reload recalibrates on them. `--data-parallel` in a
+process that sees one device is this single-device server, as in the JAX
+package; over several cards it and `--spatial-parallel` wait for ROADMAP.md
+Queue 1 item 15b and raise, and a multi-process server raises.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ import torch
 from yogo_tpu_torch.infer import Predictor, load_model, needs_calibration, quantize_stack
 from yogo_tpu_torch.models.yogo import resolve_device
 from yogo_tpu_torch.ops.postprocess import _cxcywh_to_xyxy_np, format_preds, scatter_candidates
+from yogo_tpu_torch.parallel.distributed import process_shard
 from yogo_tpu_torch.utils.checkpoint import load_any
 from yogo_tpu_torch.utils.weights import state_dict_from_flax
 
@@ -311,12 +314,24 @@ def build_server(
     """Load the model onto `device` (default CUDA), warm it up, and return
     a ready (not yet serving) ThreadingHTTPServer. Callers run
     serve_forever(); tests drive it from a thread and shut it down."""
-    if data_parallel or spatial_parallel > 1:
+    if (data_parallel or spatial_parallel > 1) and process_shard()[1] > 1:
+        raise ValueError(
+            "data_parallel/spatial_parallel serving is single-process only "
+            "(same contract as yogo infer)"
+        )
+    if spatial_parallel > 1:
         raise NotImplementedError(
-            "--data-parallel / --spatial-parallel serving is not ported yet "
-            "(ROADMAP.md Queue 1 item 15); the port serves from one device"
+            "--spatial-parallel serving (row-split convs with halo exchange) "
+            "is not ported yet (ROADMAP.md Queue 1 item 15b)"
         )
     device = resolve_device(device)
+    if data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        # one visible device serves alone, as the JAX package builds a mesh
+        # only over more than one device
+        raise NotImplementedError(
+            "--data-parallel serving over several cards is not ported yet "
+            "(ROADMAP.md Queue 1 item 15b)"
+        )
     model, stack, cfg = load_model(
         ckpt_path, half=half, device=device, vertical_crop_height=vertical_crop_height,
     )

@@ -2,7 +2,13 @@
 optimizer recipe, train step and eval step, the `Trainer` (epoch loop,
 validation, best / latest checkpoints, SIGTERM stop and exact resume,
 post-train test) and `do_training`, the entry of the `train` subcommand.
-One process drives one device; data parallelism is not ported yet.
+One process drives one device. Under torchrun (a process group of N > 1
+ranks, parallel/distributed.py) each rank trains on its loader shard and
+the step is the global batch's: BatchNorm statistics over every rank's
+rows, the loss divided by the global real-image count, the gradients
+summed over the ranks before the clamp; rank 0 writes the run directory.
+`--fsdp` shards the large parameters and their AdamW moments over the
+ranks (FSDP2, parallel/mesh.py).
 
 Recipe (reference: yogo/train.py:206-223,295-342): AdamW(lr 3e-4, wd 5e-2)
 with decoupled weight decay on every parameter, a cosine schedule stepped
@@ -31,6 +37,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from yogo_tpu_torch.data.definition import DatasetDefinition
@@ -40,7 +47,20 @@ from yogo_tpu_torch.data.transforms import random_flips
 from yogo_tpu_torch.losses import yogo_loss
 from yogo_tpu_torch.metrics import DeviceMetrics, Metrics
 from yogo_tpu_torch.models.yogo import REMAT_MODES, YOGO, no_tf32, resolve_device
-from yogo_tpu_torch.ops.quant import family_quant_forward, family_quant_plan
+from yogo_tpu_torch.ops.quant import (
+    family_quant_forward,
+    family_quant_plan,
+    quant_program_of_rank0,
+)
+from yogo_tpu_torch.parallel.distributed import (
+    all_reduce_grads,
+    all_reduce_max,
+    all_reduce_sum,
+    barrier,
+    local_device,
+    process_shard,
+)
+from yogo_tpu_torch.parallel.mesh import full_state_dict, fully_shard_stack
 from yogo_tpu_torch.utils.checkpoint import load_any, restore_opt_state, save_checkpoint
 from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
 from yogo_tpu_torch.utils.logging import RunLogger
@@ -68,6 +88,11 @@ class ClampedAdamW(torch.optim.AdamW):
     sees the whole step's gradient, after any accumulation)."""
 
     def __init__(self, params, clip_value: float, **kwargs):
+        params = list(params)
+        if len({isinstance(p, DTensor) for p in params}) > 1:
+            # --fsdp: sharded (DTensor) and replicated parameters cannot
+            # share one multi-tensor kernel, the default on a card
+            kwargs.setdefault("foreach", False)
         super().__init__(params, **kwargs)
         self.clip_value = float(clip_value)
 
@@ -149,28 +174,46 @@ def make_train_step(
     result is exactly the big batch's for any padding pattern (under frozen
     BN; with live BN each micro-batch normalises with its own statistics).
     A micro-batch that is all padding leaves the BN statistics alone. The
-    cosine schedule ticks once per optimizer step."""
+    cosine schedule ticks once per optimizer step.
+
+    In a process group of N > 1 ranks each rank passes its own rows (the
+    same count on every rank) and the step is the global batch's, as the
+    JAX step jitted over a batch-sharded mesh: one all_reduce gives each
+    micro-batch's global real-image count, which divides every rank's loss;
+    BatchNorm normalises with the global statistics (models/yogo.py); the
+    gradients are summed over the ranks in one bucket before the clamp;
+    the dropout masks are rows of the global batch's draw (flips are one
+    coin a batch, equal on every rank); the loss returned is the global
+    batch's on every rank. At world 1 nothing of this runs."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
     if accumulate < 1:
         raise ValueError(f"accumulate must be >= 1, got {accumulate}")
 
-    def forward(stack, imgs, labels, img_mask, generator):
+    def forward(stack, imgs, labels, img_mask, generator, n_images, batch_rows):
         x = imgs.to(model.compute_dtype)
         if augment:
             x, labels = random_flips(generator, x, labels)
         out = model.apply(
-            stack, x, train=True, tuning=tuning, generator=generator, remat=remat
+            stack, x, train=True, tuning=tuning, generator=generator, remat=remat,
+            batch_rows=batch_rows,
         )
-        return yogo_loss(out, labels, image_mask=img_mask, **loss_kwargs)
+        return yogo_loss(out, labels, image_mask=img_mask, n_images=n_images, **loss_kwargs)
 
     def step(state: TrainState, imgs, labels, img_mask, generator=None):
         stack = state.stack
         state.optimizer.zero_grad(set_to_none=True)
+        rank, world = process_shard()
+        counts = rows = None
+        if world > 1:
+            # the global real-image count of each micro-batch, one collective
+            counts = all_reduce_sum(img_mask.float().sum(-1))
+            b = imgs.shape[-4]
+            rows = (rank * b, world * b)
         # float32 means float32 in the backward convs too
         with no_tf32(imgs.device):
             if accumulate == 1:
-                loss, comps = forward(stack, imgs, labels, img_mask, generator)
+                loss, comps = forward(stack, imgs, labels, img_mask, generator, counts, rows)
                 loss.backward()
             else:
                 if imgs.shape[0] != accumulate:
@@ -180,12 +223,13 @@ def make_train_step(
                 stats = {} if tuning else _bn_buffers(stack)
                 lsum = wsum = 0.0
                 csum = dict.fromkeys(COMPONENTS, 0.0)
-                for mi, ml, mm in zip(imgs, labels, img_mask):
+                for j, (mi, ml, mm) in enumerate(zip(imgs, labels, img_mask)):
                     before = {k: b.clone() for k, b in stats.items()}
-                    loss, comps = forward(stack, mi, ml, mm, generator)
+                    n_j = None if counts is None else counts[j]
+                    loss, comps = forward(stack, mi, ml, mm, generator, n_j, rows)
                     # loss and gradient came back divided by max(count, 1):
                     # count * value recovers the sums (zero for all padding)
-                    w = mm.float().sum()
+                    w = mm.float().sum() if n_j is None else n_j
                     (w * loss).backward()
                     lsum = lsum + w * loss.detach()
                     csum = {k: csum[k] + w * comps[k].detach() for k in COMPONENTS}
@@ -198,6 +242,11 @@ def make_train_step(
                         p.grad.div_(denom)
                 loss = lsum / denom
                 comps = {k: v / denom for k, v in csum.items()}
+            if world > 1:
+                all_reduce_grads(list(stack.parameters()))
+                # every rank returns the global batch's loss, as every JAX process does
+                total = all_reduce_sum(torch.stack([loss.detach(), *(comps[k].detach() for k in COMPONENTS)]))
+                loss, comps = total[0], dict(zip(COMPONENTS, total[1:]))
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -211,7 +260,8 @@ def make_eval_step(
 ) -> Callable:
     """(stack, imgs, labels, img_mask) -> (loss, decoded inference preds):
     the loss of the eval-mode output with class logits, and the same
-    output with softmaxed classes for the metrics.
+    output with softmaxed classes for the metrics. In a process group of
+    N > 1 ranks the loss is the global batch's on every rank.
 
     quant_params (the family's int8 program, ops/quant.family_quant_plan) evaluates the
     int8 inference path instead of the float forward - `test --quantize`
@@ -229,7 +279,17 @@ def make_eval_step(
         else:
             out_train = model.apply(stack, imgs.to(model.compute_dtype), train=False)
         with torch.no_grad():
-            loss, _ = yogo_loss(out_train, labels, image_mask=img_mask, **loss_kwargs)
+            if process_shard()[1] > 1:
+                # the global batch's loss: every rank's sum over the
+                # global real-image count, one collective
+                one = out_train.new_ones(())
+                loss_sum, _ = yogo_loss(out_train, labels, image_mask=img_mask, n_images=one,
+                                        **loss_kwargs)
+                n = one * out_train.shape[0] if img_mask is None else img_mask.float().sum()
+                total = all_reduce_sum(torch.stack([loss_sum, n.to(loss_sum.dtype)]))
+                loss = total[0] / torch.clamp(total[1], min=1.0)
+            else:
+                loss, _ = yogo_loss(out_train, labels, image_mask=img_mask, **loss_kwargs)
             probs = torch.softmax(out_train[:, 5:], dim=1)
             preds_inf = torch.cat([out_train[:, :5], probs], dim=1)
         return loss, preds_inf
@@ -252,9 +312,14 @@ def device_name(device: torch.device) -> str:
 
 
 class Trainer:
-    """Single-device trainer. `config` mirrors the reference's wandb config
-    dict keys (reference: yogo/train.py:612-643). `device` defaults to CUDA
-    and raises without one; "cpu" runs on the CPU."""
+    """The trainer of one rank. `config` mirrors the reference's wandb
+    config dict keys (reference: yogo/train.py:612-643). `device` defaults
+    to the rank's card (cuda:LOCAL_RANK) and raises without one; "cpu" runs
+    on the CPU. Rank and world size come from the process group (world 1
+    without one): the loader shards by them, `batch_size` is per rank as in
+    the JAX package, the step is the global batch's (make_train_step), rank
+    0 alone writes the run directory, a SIGTERM to any rank stops every
+    rank at the same epoch boundary, and every rank runs the test pass."""
 
     # LR-log clock offset vs global_step (set by _init_training_tools;
     # class-level default keeps partially-constructed Trainers working)
@@ -264,15 +329,11 @@ class Trainer:
         self.config = config
         if int(config.get("spatial_parallel", 1) or 1) > 1:
             raise NotImplementedError(
-                "--spatial-parallel waits for the multi-device port "
-                "(ROADMAP.md Queue 1 item 15)"
+                "--spatial-parallel (row-split convs with halo exchange) is "
+                "not ported yet (ROADMAP.md Queue 1 item 15b)"
             )
-        if config.get("fsdp"):
-            raise NotImplementedError(
-                "--fsdp waits for the multi-device port "
-                "(ROADMAP.md Queue 1 item 15)"
-            )
-        self.device = resolve_device(device)
+        self.rank, self.world = process_shard()
+        self.device = local_device(device)
         config["device"] = device_name(self.device)
         self.epoch = 0
         self.global_step = 0
@@ -383,6 +444,7 @@ class Trainer:
             rgb=self.config.get("rgb", False),
             normalize_images=self.config.get("normalize_images", False),
             split_fraction_override=self.config.get("dataset_split_override"),
+            shard=(self.rank, self.world),
             packed_cache=self.config.get("packed_cache"),
         )
         self.train_dataloader = loaders["train"]
@@ -401,6 +463,11 @@ class Trainer:
         self._accumulate = max(int(cfg.get("accumulate_grad_batches", 1) or 1), 1)
         steps_per_epoch = -(-len(self.train_dataloader) // self._accumulate)
         total_steps = cfg["epochs"] * steps_per_epoch
+        # --fsdp: the large parameters (and so their AdamW moments) sharded
+        # over the ranks; the optimizer is built over the sharded ones
+        self._fsdp = bool(cfg.get("fsdp")) and self.world > 1
+        if self._fsdp:
+            fully_shard_stack(self.stack)
         optimizer, scheduler, self.lr_schedule = make_optimizer(
             self.stack.parameters(),
             learning_rate=cfg["learning_rate"],
@@ -468,6 +535,7 @@ class Trainer:
             name=cfg.get("name"),
             notes=cfg.get("note"),
             tags=cfg.get("tags"),
+            enabled=self.rank == 0,
         )
         self.logger.update_config(
             {
@@ -489,6 +557,17 @@ class Trainer:
 
     # ----------------------------------------------------------- checkpoint
     def checkpoint(self, filename: Path, model_name: str, **kwargs) -> None:
+        # rank 0 alone writes: replicated state is equal everywhere, and two
+        # writers of one file on a shared filesystem would race. Sharded
+        # (--fsdp) state is first gathered whole by every rank together
+        # (the JAX package's fetch_replicated)
+        if self.rank != 0 and not getattr(self, "_fsdp", False):
+            return
+        st = self.state
+        variables = flax_from_state_dict(full_state_dict(st.stack))
+        opt_state = optax_state_from_torch(st.stack, st.optimizer, st.scheduler)
+        if self.rank != 0:
+            return
         # resume metadata: which epoch a --resume run should start at, and
         # the best-val-loss watermark so best.ckpt isn't overwritten by a
         # worse post-resume validation (getattr: tests build bare Trainers)
@@ -497,12 +576,11 @@ class Trainer:
         kwargs.setdefault(
             "min_val_loss", float(mvl) if np.isfinite(mvl) else None
         )
-        st = self.state
         save_checkpoint(
             filename,
             self.model,
-            flax_from_state_dict(st.stack.state_dict()),
-            opt_state=optax_state_from_torch(st.stack, st.optimizer, st.scheduler),
+            variables,
+            opt_state=opt_state,
             epoch=self.epoch,
             step=int(st.step),
             classes=self.config["class_names"],
@@ -597,7 +675,7 @@ class Trainer:
                         self.model_save_dir / "latest.ckpt",
                         model_name=self.logger.run_name or "recent_run_latest",
                     )
-            if self._stop_requested:
+            if self._stop_consensus():
                 interrupted = True
                 break
 
@@ -640,13 +718,23 @@ class Trainer:
             return None
 
         # reload best checkpoint and evaluate on the test split
-        # (reference: yogo/train.py:344-361)
+        # (reference: yogo/train.py:344-361). Rank 0 may still be writing
+        # best.ckpt: every rank waits for it before reading
+        barrier()
         best = (self.model_save_dir or Path(".")) / "best.ckpt"
+        tested: Any = self.state.stack
+        if self._fsdp:
+            # the test pass runs a whole model on every rank, as the JAX
+            # package's fetch_replicated state on a fresh mesh
+            tested = flax_from_state_dict(full_state_dict(self.state.stack))
         if best.exists():
             _, variables, _ = load_any(best)
-            self.state.stack.load_state_dict(
-                state_dict_from_flax(variables), strict=True
-            )
+            if self._fsdp:
+                tested = variables
+            else:
+                self.state.stack.load_state_dict(
+                    state_dict_from_flax(variables), strict=True
+                )
         else:
             warnings.warn(f"no best model found at {best} for testing...")
 
@@ -657,7 +745,7 @@ class Trainer:
                     self.test_dataloader,
                     self.config,
                     self.model,
-                    self.state.stack,
+                    tested,
                     fast_eval=self.config.get("fast_eval", True),
                     fast_eval_max_detections=self.config.get(
                         "fast_eval_max_detections", 256
@@ -665,6 +753,7 @@ class Trainer:
                     fast_eval_max_labels=self.config.get(
                         "fast_eval_max_labels", 256
                     ),
+                    device=self.device,
                 )
             if test_metrics is not None:
                 self._log_test_metrics(*test_metrics)
@@ -689,19 +778,21 @@ class Trainer:
         for imgs, labels, mask in prefetch_to_device(
             self.train_dataloader, self.device, accumulate=self._accumulate
         ):
-            if self._stop_requested:
+            if self._stop_requested and self.world == 1:
                 # stop mid-epoch before dispatching the next step (the
                 # caller's checkpoint records this epoch as unfinished, a
                 # --resume replays it from the top). Checking BEFORE the
                 # step - not after it - means a signal that lands during
                 # the epoch's final step lets the loop exhaust naturally,
                 # so a fully-completed epoch is recorded complete instead
-                # of being replayed.
+                # of being replayed. Ranks of a group may see the signal at
+                # different steps: they keep their collectives in lockstep
+                # and agree at the epoch boundary instead (_stop_consensus).
                 stopped = True
                 break
             # optional torch.profiler trace of the first few hot-loop steps
             # (the reference has only a Timer)
-            if self._profile_steps and self.global_step == self._profile_start:
+            if self._profile_steps and self.global_step == self._profile_start and self.rank == 0:
                 self._profiler = _start_profile()
             if (
                 self._profiler is not None
@@ -772,17 +863,18 @@ class Trainer:
         mean_val_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
 
         log: Dict[str, Any] = {"val loss": mean_val_loss}
-        try:  # the last batch's first image with its boxes, best effort
-            from yogo_tpu_torch.utils.drawing import draw_yogo_prediction
+        try:  # rank 0: the last batch's first image with its boxes, best effort
+            if self.rank == 0:
+                from yogo_tpu_torch.utils.drawing import draw_yogo_prediction
 
-            img = draw_yogo_prediction(
-                last_batch[0][0].cpu().numpy(),
-                last_batch[1][0].float().cpu().numpy(),
-                labels=self.config["class_names"],
-                images_are_normalized=self.config.get("normalize_images", False),
-            )
-            if self.model_save_dir is not None:
-                img.save(self.model_save_dir / "validation_bbs.png")
+                img = draw_yogo_prediction(
+                    last_batch[0][0].cpu().numpy(),
+                    last_batch[1][0].float().cpu().numpy(),
+                    labels=self.config["class_names"],
+                    images_are_normalized=self.config.get("normalize_images", False),
+                )
+                if self.model_save_dir is not None:
+                    img.save(self.model_save_dir / "validation_bbs.png")
         except Exception as e:  # drawing must never stop training
             warnings.warn(f"could not draw validation image: {e}")
 
@@ -797,6 +889,15 @@ class Trainer:
         # yogo/train.py _validate; this trainer writes latest at EVERY
         # epoch end instead - same state, strictly fresher cadence)
         self.logger.log(log, step=self.global_step)
+
+    def _stop_consensus(self) -> bool:
+        """Whether to stop at this epoch boundary: a SIGTERM seen by any
+        rank stops every rank here, decided together (an all_reduce MAX of
+        the flags; the flag itself at world 1)."""
+        if self.world == 1:
+            return self._stop_requested
+        flag = torch.tensor([int(self._stop_requested)], device=self.device)
+        return bool(all_reduce_max(flag).item())
 
     # ------------------------------------------------------------------ test
     @staticmethod
@@ -833,7 +934,13 @@ class Trainer:
         fast_eval_max_detections / fast_eval_max_labels bound the
         per-image detections and GT boxes (the host engine caps detections
         at 1024 and labels not at all) - DeviceMetrics warns at compute()
-        when a scene overflowed; raise these for denser datasets."""
+        when a scene overflowed; raise these for denser datasets.
+
+        In a process group each rank passes its loader shard and runs this
+        together: the loss is the global batch's, the device engine sums
+        its state over the ranks (it scores the global batch, as the JAX
+        package's SPMD update), the host engine scores this rank's rows,
+        and quantize runs rank 0's int8 program on every rank."""
         Trainer._check_keys(config)
         if test_dataloader is None or len(test_dataloader) == 0:
             return None
@@ -882,9 +989,10 @@ class Trainer:
         if quantize:
             # validates the family BEFORE a test batch is consumed for
             # calibration (yogo_tpu/train.py:1031-1040)
-            build_qp = family_quant_plan(model, stack, device=device)[0]
+            build_qp, _, n_scales, _ = family_quant_plan(model, stack, device=device)
             calib = next(iter(test_dataloader))[0]  # len checked above
-            quant_params = build_qp([calib])
+            # in a process group every rank runs rank 0's program
+            quant_params = quant_program_of_rank0(build_qp, n_scales, [calib], device)
         eval_step = make_eval_step(model, loss_kwargs, quant_params=quant_params)
 
         losses = []  # device scalars, fetched once after the loop

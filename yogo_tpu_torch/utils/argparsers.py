@@ -2,9 +2,9 @@
 flag-compatible with the reference CLI, reference:
 yogo/utils/argparsers.py:74-489): `train`, `test`, `export`, `infer` and
 `serve` with the same flag names, validating types and defaults as the JAX
-package; `--device` defaults to CUDA. The flags of paths not ported yet
-(`--data-parallel`, `--spatial-parallel`) parse, and the commands raise naming
-their ROADMAP item.
+package; `--device` defaults to CUDA. `--spatial-parallel` above 1 (and
+`serve --data-parallel` over several cards) parse, and the commands raise
+naming ROADMAP item 15b.
 """
 
 from __future__ import annotations
@@ -305,15 +305,16 @@ def train_parser(parser=None):
         "--spatial-parallel", type=positive_int, default=1,
         help=(
             "split each image's rows over N devices (extension of the JAX "
-            "package; not ported yet: any N > 1 is refused) (default: 1)"
+            "package; not ported yet, ROADMAP item 15b: any N > 1 is "
+            "refused) (default: 1)"
         ),
     )
     parser.add_argument(
         "--fsdp", action="store_true",
         help=(
-            "shard params, optimizer moments, and batch stats over the "
-            "devices (extension of the JAX package; not ported yet: the "
-            "flag is refused)"
+            "under torchrun, shard the parameters of >= 4096 elements and "
+            "their AdamW moments over the ranks (FSDP2; extension of the "
+            "JAX package); a checkpoint holds the whole state"
         ),
     )
     parser.add_argument(
@@ -586,11 +587,12 @@ def infer_parser(parser=None):
     )
     parser.add_argument(
         "--data-parallel", action="store_true",
-        help="multi-device inference: not ported yet (ROADMAP.md Queue 1 item 15), raises",
+        help="under torchrun, split the images over the ranks (rank 0 prints "
+             "the summed counts); in one process, the single-device path",
     )
     parser.add_argument(
         "--spatial-parallel", type=positive_int, default=1,
-        help="row-split inference: not ported yet (ROADMAP.md Queue 1 item 15), raises above 1",
+        help="row-split inference: not ported yet (ROADMAP.md Queue 1 item 15b), raises above 1",
     )
     parser.add_argument(
         "--use-tqdm", action=boolean_action, default=True,
@@ -711,10 +713,11 @@ def serve_parser(parser=None):
     )
     parser.add_argument(
         "--data-parallel", action="store_true",
-        help="multi-device serving: not ported yet (ROADMAP.md Queue 1 item 15), raises",
+        help="in a process that sees one device, the single-device server; "
+             "over several cards not ported yet (ROADMAP.md Queue 1 item 15b), raises",
     )
     parser.add_argument(
         "--spatial-parallel", type=positive_int, default=1,
-        help="row-split serving: not ported yet (ROADMAP.md Queue 1 item 15), raises above 1",
+        help="row-split serving: not ported yet (ROADMAP.md Queue 1 item 15b), raises above 1",
     )
     return parser

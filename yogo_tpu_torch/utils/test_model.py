@@ -23,9 +23,15 @@ def test_model(args):
     """Run the test pass, print and log it; returns the metric tuple of
     Trainer.test (None for an empty test loader)."""
     from yogo_tpu_torch.models.yogo import resolve_device
+    from yogo_tpu_torch.parallel.distributed import local_device, process_shard
 
-    # no card and no --device cpu: refuse before anything is read
-    device = resolve_device(getattr(args, "device", None))
+    # no card and no --device cpu: refuse before anything is read. Under
+    # torchrun each rank scores its shard of the test split: the device
+    # engine's state is summed over the ranks, the host engine's is the
+    # rank's own (as the JAX package's and the reference's rank-0 test)
+    rank, world = process_shard()
+    device_arg = getattr(args, "device", None)
+    device = local_device(device_arg) if world > 1 else resolve_device(device_arg)
     model, variables, cfg = load_any(args.ckpt_path)
     # the reference evaluates under fp16 autocast (yogo/utils/test_model.py:37);
     # here, as in the JAX package, that is bf16 compute
@@ -64,6 +70,7 @@ def test_model(args):
         image_hw=tuple(int(d) for d in model.img_size),
         rgb=bool(model.is_rgb),  # RGB checkpoints need 3-channel batches
         normalize_images=bool(cfg.get("normalize_images", model.normalize_images)),
+        shard=(rank, world),
         packed_cache=getattr(args, "packed_cache", None),
     )
     if "test" not in loaders:
@@ -93,6 +100,8 @@ def test_model(args):
         device=device,
     )
 
+    if rank != 0:
+        return metrics
     log_to_wandb = args.wandb or (args.wandb_resume_id is not None)
     logger = RunLogger(
         log_dir=None,

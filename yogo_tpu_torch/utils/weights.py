@@ -36,6 +36,9 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from yogo_tpu_torch.parallel.mesh import full_tensor, shard_like
 
 _STATS = {"running_mean": "mean", "running_var": "var"}
 _LINEAR = ("pwconv1", "pwconv2")
@@ -188,8 +191,9 @@ def optax_state_from_torch(
     mu, nu, count = {}, {}, 0
     for name, p in stack.named_parameters():
         st = optimizer.state.get(p, {})
-        mu[name] = st.get("exp_avg", torch.zeros_like(p))
-        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        # an FSDP-sharded moment is gathered whole (every rank joins)
+        mu[name] = full_tensor(st.get("exp_avg", torch.zeros_like(p)))
+        nu[name] = full_tensor(st.get("exp_avg_sq", torch.zeros_like(p)))
         count = max(count, int(st.get("step", 0)))
     adam = {
         "count": np.asarray(count, np.int32),
@@ -225,10 +229,13 @@ def load_optax_state(
     for name, p in stack.named_parameters():
         if mu[name].shape != p.shape:
             raise ValueError(f"{name}: moment shape {tuple(mu[name].shape)} vs {tuple(p.shape)}")
+        m, v = mu[name], nu[name]
+        if isinstance(p, DTensor):  # an FSDP-sharded parameter: its moments shard with it
+            m, v = shard_like(m, p), shard_like(v, p)
         state[index[p]] = {
             "step": torch.tensor(step, dtype=torch.float32),
-            "exp_avg": mu[name],
-            "exp_avg_sq": nu[name],
+            "exp_avg": m,
+            "exp_avg_sq": v,
         }
     optimizer.load_state_dict(
         {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
