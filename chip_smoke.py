@@ -7,6 +7,8 @@ Phases (any failure exits non-zero):
   1. device: the card's name and `nvidia-smi` name / power limit;
   2. build: every CUDA source of the port, one nvcc each, in parallel, with
      ptxas's registers / spills and a SASS summary per kernel (cuobjdump);
+     every int8_conv kernel must have wgmma's IGMMA in its SASS and no
+     spills; the dynamic shared memory of its plans at the six timed sites;
   3. kernels against their plain PyTorch versions on the card: the stem
      kernel in both layouts on block-0 weights of the trained base_model
      checkpoint at 772x1032 (B=2; B=4, the batch of phases 4 and 6; B=8,
@@ -81,7 +83,8 @@ Phases (any failure exits non-zero):
      remat="blocks", the trained state reloaded from .ckpt and .pth (equal
      heads); `infer --quantize` (71 int8 conv launches a batch), the kernel
      against its plain version at all 71 sites of that batch and its time
-     at three, int8 against bf16 forward; `serve` and `serve --quantize` at
+     at three (and torch._int_mm alone at the two 1x1 ones), int8 against
+     bf16 forward; `serve` and `serve --quantize` at
      micro-batch 8 equal to the formatter, before and after a reload;
  11. export (export_phase): `export` of the golden checkpoint with the
      default device (the card): the .onnx bytes equal build_onnx on the
@@ -123,6 +126,7 @@ import numpy as np
 import torch
 
 from yogo_tpu_torch.tools.golden_scene import gen_golden_images
+from yogo_tpu_torch.tools.timing import INT8_RATE, MEM_RATE, cuda_ms, rate
 
 REPO = Path(__file__).resolve().parent
 CKPT = REPO / "tests" / "goldens" / "trained_base_model_fullres.ckpt"
@@ -137,42 +141,13 @@ RTOL, ATOL = 8e-3, 1e-2  # 1 bf16 ulp at the stem's output range
 WITNESS_TILED_B64 = {"per_image": [47, 53, 49, 29], "matched": 178,
                      "failures": ["image 1: matched IoU 0.726, classes 1 / 1"]}
 
-# device-memory rate by card name (NVIDIA data sheets), bytes/s, and the
-# float32 rate outside the tensor cores (the stem's FMAs), FLOP/s
-MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12, "H100": 3.35e12}
+# the float32 rate outside the tensor cores (the stem's FMAs), FLOP/s; the
+# memory and int8 rates by card are tools/timing.py's
 F32_RATE = 67e12
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def mem_rate(name: str) -> float:
-    for key, rate in MEM_RATE.items():
-        if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate known for {name!r}")
-
-
-def cuda_ms(fn, reps: int, per_rep: int = 20, warmup: int = 3) -> float:
-    """Time of one fn() call in ms: the median over `reps` of CUDA-event
-    timings of `per_rep` back-to-back calls, divided by `per_rep`. The
-    calls queue up behind one another, so the host work of each call
-    overlaps the device work of the one before, and only the device time
-    stays in the window."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(per_rep):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per_rep)
-    return statistics.median(times)
 
 
 def train_phase(dev, imgs4, boxes4, smi, *, batch=TIMING_BATCH, steps=30, small_batch=16,
@@ -1133,15 +1108,42 @@ def serve_phase(device_arg, imgs4, *, ckpt=CKPT, want_per_image=None, batches=(8
     return out, launches
 
 
-# device int8 rate (dense, NVIDIA data sheets), operations/s
-INT8_RATE = {"H100 PCIe": 1513e12, "H100 NVL": 1671e12, "H200": 1979e12, "H100": 1979e12}
+def int8_conv_build_check(sass: dict, sms: int) -> dict:
+    """Phase 2 for csrc/int8_conv.cu: every kernel function has tensor-core
+    instructions of wgmma (IGMMA) in `sass` (kernels.sass_summary) and
+    ptxas reports no spills (kernels.build_log: the same whether this run
+    built the library or found it built); with each function's registers,
+    stack and static shared memory, and the dynamic shared memory of its
+    launch plans at the main path's six timed sites
+    (tools/int8_conv_sites.py) on a card of `sms` SMs. Raises if a check
+    fails."""
+    from yogo_tpu_torch import kernels
+    from yogo_tpu_torch.ops import int8_conv as ic
+    from yogo_tpu_torch.tools.int8_conv_sites import SITES
 
-
-def int8_rate(name: str) -> float:
-    for key, rate in INT8_RATE.items():
-        if key in name:
-            return rate
-    raise RuntimeError(f"no int8 rate known for {name!r}")
+    ptxas = kernels.ptxas_summary(kernels.build_log("int8_conv"))
+    if "int8_conv" not in sass or not ptxas:
+        raise AssertionError("int8_conv: no SASS or ptxas report of its build")
+    igmma = {fn: s["igmma"] for fn, s in sass["int8_conv"].items()}
+    if not igmma or not all(igmma.values()):
+        raise AssertionError(f"int8_conv: kernel functions without IGMMA: {igmma}")
+    spills = {fn: (s["spill_stores"], s["spill_loads"]) for fn, s in ptxas.items()
+              if s["spill_stores"] or s["spill_loads"]}
+    if spills:
+        raise AssertionError(f"int8_conv: ptxas reports spills (stores, loads) in {spills}")
+    plans = {}
+    for site, ((b, h, w, cin), cout, k, stride, act, s8) in SITES.items():
+        plan = ic.launch_plan(b, h, w, ic.padded_channels(cin), cout, k, stride, (k - 1) // 2,
+                              out_s8=s8, act=act, num_sms=sms)
+        plans[site] = {key: getattr(plan, key) for key in (
+            "smem_bytes", "block_n", "consumers", "resident_b", "stages", "grid", "tiles", "k_blocks")}
+    # SASS names are demangled, ptxas's are not: each by its own
+    out = {"igmma": igmma, "ptxas": ptxas, "plans_at_sites": plans}
+    regs = [f["registers"] for f in ptxas.values()]
+    log(f"int8_conv build: {len(igmma)} kernels, IGMMA in each ({min(igmma.values())}-{max(igmma.values())}), "
+        f"registers {min(regs)}-{max(regs)}, no spills; dynamic shared memory at the sites: "
+        + json.dumps({k: v["smem_bytes"] for k, v in plans.items()}))
+    return out
 
 
 def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timing=True,
@@ -1417,7 +1419,7 @@ def int8_timing(dev, pred, big, codes_at, block_args):
         m = out.shape[0] * out.shape[1] * out.shape[2]
         n_ops = 2 * m * cout * k * k * cin
         n_bytes = q.numel() + w8.numel() + 8 * cout + out.numel() * out.element_size()
-        bound = {"bytes": n_bytes / mem_rate(kind) * 1e3, "operations": n_ops / int8_rate(kind) * 1e3}
+        bound = {"bytes": n_bytes / rate(MEM_RATE, kind) * 1e3, "operations": n_ops / rate(INT8_RATE, kind) * 1e3}
         w_oihw = w8[..., :cin].permute(0, 3, 1, 2).contiguous()
         w_mm = w_oihw.reshape(cout, -1)  # (N, K) in unfold's (c, dy, dx) order
 
@@ -1769,7 +1771,7 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
             m = y.shape[0] * y.shape[1] * y.shape[2]
             n_ops = 2 * m * cout * k * k * cin
             n_bytes = q.numel() + w8.numel() + 8 * cout + y.numel() * 4
-            bound = {"bytes": n_bytes / mem_rate(kind) * 1e3, "operations": n_ops / int8_rate(kind) * 1e3}
+            bound = {"bytes": n_bytes / rate(MEM_RATE, kind) * 1e3, "operations": n_ops / rate(INT8_RATE, kind) * 1e3}
             # the library route: the codes as (M, K) rows (a 2x2 stride-2
             # VALID window is a patch: crop to even, reshape and permute),
             # torch._int_mm, then the epilogue in torch ops
@@ -1790,6 +1792,9 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
                 raise AssertionError(f"int8 conv at {key}: the library route differs from the kernel")
             rec = {"shape": {"in": list(q.shape), "out": list(y.shape)},
                    "ms": cuda_ms(lambda args=args, kw=kw: ic.int8_conv(*args, **kw), 5),
+                   # 1x1: cuBLASLt's s32 product alone, without the epilogue
+                   **({"int_mm_ms": cuda_ms(lambda w_mm=w_mm, rows=rows: torch._int_mm(rows(), w_mm), 5)}
+                      if k == 1 else {}),
                    "plain_ms": cuda_ms(lambda args=args, kw=kw: ic.int8_conv_reference(*args, **kw), 3,
                                        per_rep=1, warmup=1),
                    "library_ms": cuda_ms(library, 5),
@@ -2493,8 +2498,8 @@ def main() -> int:
     kernels.build_all()
     report["build_s"] = time.time() - t0
     log(f"build: {report['build_s']:.1f} s for {sorted(kernels.SOURCES)}")
-    for name, text in kernels.build_logs.items():
-        log(f"--- nvcc csrc/{name}.cu ---\n{text.strip()}")
+    for name in kernels.SOURCES:
+        log(f"--- nvcc csrc/{name}.cu ---\n{kernels.build_log(name).strip()}")
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     report["sass"] = {}
@@ -2506,6 +2511,9 @@ def main() -> int:
             continue
         for fn, s in report["sass"][name].items():
             log(f"sass {fn}: {json.dumps(s)}")
+    report["ptxas"] = {name: kernels.ptxas_summary(kernels.build_log(name)) for name in kernels.SOURCES}
+    report["int8_conv_build"] = int8_conv_build_check(
+        report["sass"], torch.cuda.get_device_properties(dev).multi_processor_count)
 
     # ------------------------------------- 3. kernels vs their plain versions
     golden = dict(np.load(GOLDEN))
@@ -2600,7 +2608,7 @@ def main() -> int:
     n_bytes = bsz * h * w + out_px * c * 2 + (c * 9 + c) * 4
     n_ops = out_px * c * (2 * 9 + 1)
     bound_ms = {
-        "bytes": n_bytes / mem_rate(kind) * 1e3,
+        "bytes": n_bytes / rate(MEM_RATE, kind) * 1e3,
         "operations": n_ops / F32_RATE * 1e3,
     }
     bound_by = max(bound_ms, key=bound_ms.get)
@@ -2786,8 +2794,8 @@ def main() -> int:
         "max_abs_err_convnext": report["convnext"]["int8"]["max_abs_err"],
         "convnext_sites_checked": report["convnext"]["int8"]["sites_checked"],
         "convnext_site_shapes_checked": report["convnext"]["int8"]["site_shapes_checked"],
-        "by_convnext_site": {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                           "bound_by", "bound_share")}
+        "by_convnext_site": {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms", "int_mm_ms",
+                                                           "bound_ms", "bound_by", "bound_share") if key in v}
                              for k, v in report["convnext"]["int8"]["sites"].items()},
     })
     report["kernels"] = rows

@@ -192,13 +192,13 @@ def test_build_runs_nvcc_for_sm90a_into_a_hashed_library(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kernels, "find_nvcc", lambda: nvcc)
     kernels.build_all()
-    libs = sorted(kernels._lib_path(n).name for n in kernels.SOURCES)
-    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == libs
+    built = sorted(f(n).name for n in kernels.SOURCES for f in (kernels._lib_path, kernels._log_path))
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == built
     assert sorted(kernels.SOURCES) == ["int8_conv", "stem"]
     runs = args.read_text().splitlines()
     assert len(runs) == 2 and all("arch=compute_90a,code=sm_90a" in r for r in runs)
     assert sorted(r.rsplit("csrc/", 1)[1] for r in runs) == ["int8_conv.cu", "stem.cu"]
-    assert all("50 registers" in kernels.build_logs[n] for n in kernels.SOURCES)
+    assert all("50 registers" in kernels.build_log(n) for n in kernels.SOURCES)
     args.unlink()
     kernels.build_all()  # already built: nvcc is not run again
     assert not args.exists()
@@ -250,11 +250,22 @@ def test_sass_summary_counts_the_longest_loop():
         /*0060*/                   EXIT ;
         /*0070*/                   BRA 0x70;
         /*0080*/                   NOP;
+        Function : void g<128, 1, true>(CUtensorMap_st, Params)
+        /*0000*/                   WARPGROUP.ARRIVE ;
+        /*0010*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR8], R24, gsb0 ;
+        /*0020*/                   IGMMA.64x128x32.S8.S8 R88, gdesc[UR12], R88, gsb0 ;
+        /*0030*/                   IMMA.16832.S8.S8 R4, R8, R12, R4 ;
+        /*0040*/                   EXIT ;
 """
     got = parse_sass(listing)
-    assert got == {"void k<16, true>(int)": {
-        "instructions": 8, "ffma": 1,
-        "loop": {"instructions": 4, "ffma": 1, "lds": 1, "stg": 1}}}
+    assert got == {
+        "void k<16, true>(int)": {
+            "instructions": 8, "ffma": 1, "igmma": 0, "imma": 0,
+            "loop": {"instructions": 4, "ffma": 1, "lds": 1, "stg": 1}},
+        "void g<128, 1, true>(CUtensorMap_st, Params)": {
+            "instructions": 5, "ffma": 0, "igmma": 2, "imma": 1,
+            "loop": {"instructions": 0, "ffma": 0, "lds": 0, "stg": 0}},
+    }
 
 
 def test_stem_variants_edit_the_current_source():
@@ -262,10 +273,11 @@ def test_stem_variants_edit_the_current_source():
     exactly once in csrc/stem.cu, and the kernel variant is the source."""
     from yogo_tpu_torch import kernels
     from yogo_tpu_torch.tools import stem_variants
+    from yogo_tpu_torch.tools.timing import variant_source
 
     src = (kernels.CSRC_DIR / "stem.cu").read_text()
-    assert stem_variants.variant_source(src, stem_variants.VARIANTS["kernel"][0]) == src
+    assert variant_source(src, stem_variants.VARIANTS["kernel"][0]) == src
     for name, (edits, _, _) in stem_variants.VARIANTS.items():
-        assert stem_variants.variant_source(src, edits) != src or name == "kernel"
+        assert variant_source(src, edits) != src or name == "kernel"
     with pytest.raises(ValueError, match="anchor"):
-        stem_variants.variant_source(src, [("no such line in the kernel", "")])
+        variant_source(src, [("no such line in the kernel", "")])

@@ -5,7 +5,9 @@ own shared library with a plain C interface, and loaded with `ctypes` - no
 PyTorch headers, so a build takes seconds. Libraries go to
 `yogo_tpu_torch/_build/` (git-ignored), named by a hash of the sources (the
 `.cu` and every `csrc/` header it includes) and the flags, so a stale build
-is never loaded. Nothing is built at import: the
+is never loaded. nvcc's output (ptxas's register and spill report) is
+kept beside each library, so `build_log` reads it whether this process
+built the library or found it built. Nothing is built at import: the
 first call that needs a kernel builds it, and `build_all()` builds every
 source at once, one `nvcc` process each, all started together.
 """
@@ -46,7 +48,7 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
     "int8_conv": {
         "yogo_int8_conv_launch": (
             ctypes.c_int,
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
         ),
         "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
@@ -54,9 +56,6 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# compiler output (ptxas register / shared-memory report) of this process's
-# builds, by source
-build_logs: Dict[str, str] = {}
 # nvcc runs started by this process, by source: a library is built once
 # and loaded once, whatever reloads a caller does
 BUILDS: Counter = Counter()
@@ -98,12 +97,18 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(name: str) -> Path:
+    """nvcc's output of the build of _lib_path(name), beside it."""
+    return _lib_path(name).with_suffix(".log")
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> None:
-    """Compile the named sources (default: all) that are not built yet, one
-    nvcc per source, concurrently. Raises with the compiler output if any
-    build fails."""
+    """Compile the named sources (default: all) that are not built yet (no
+    library, or no compiler output beside it), one nvcc per source,
+    concurrently. Raises with the compiler output if any build fails."""
     with _lock:
-        todo = [n for n in (SOURCES if names is None else names) if not _lib_path(n).exists()]
+        todo = [n for n in (SOURCES if names is None else names)
+                if not (_lib_path(n).exists() and _log_path(n).exists())]
         if not todo:
             return
         nvcc = find_nvcc()
@@ -118,14 +123,24 @@ def build_all(names: Optional[Iterable[str]] = None) -> None:
             ))
         errors = []
         for n, (tmp, p) in procs.items():
-            build_logs[n], _ = p.communicate()
+            out, _ = p.communicate()
             if p.returncode != 0:
-                errors.append(f"nvcc failed for csrc/{n}.cu:\n{build_logs[n]}")
+                errors.append(f"nvcc failed for csrc/{n}.cu:\n{out}")
                 tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, _lib_path(n))  # atomic: no half-written library
+            else:  # each file atomic: no half-written library or log
+                tmp_log = tmp.with_suffix(".log")
+                tmp_log.write_text(out)
+                os.replace(tmp_log, _log_path(n))
+                os.replace(tmp, _lib_path(n))
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with `-Xptxas -v`: registers, spills, shared memory
+    per kernel) of the library of csrc/<name>.cu, built first if needed."""
+    build_all([name])
+    return _log_path(name).read_text()
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -152,9 +167,11 @@ _SASS_BRANCH = re.compile(r"^\S*\s+(0x[0-9a-f]+)")
 
 def parse_sass(text: str) -> Dict[str, dict]:
     """Per kernel function of a `cuobjdump -sass` listing: its instruction
-    count (NOPs left out) and, for its longest loop (a backward branch and
-    the code it jumps back over), the loop body's instruction count and its
-    FFMA, shared-load (LDS) and global-store (STG) counts."""
+    count (NOPs left out), its tensor-core instructions (IGMMA: `wgmma`
+    with s8 operands; IMMA: `mma.sync` s8) and, for its longest loop (a
+    backward branch and the code it jumps back over), the loop body's
+    instruction count and its FFMA, shared-load (LDS) and global-store (STG)
+    counts."""
     out: Dict[str, dict] = {}
     ops: list = []  # (address, opcode, branch target or None)
     name = None
@@ -171,6 +188,8 @@ def parse_sass(text: str) -> Dict[str, dict]:
         out[name] = {
             "instructions": len(ops),
             "ffma": sum(o == "FFMA" for _, o, _ in ops),
+            "igmma": sum(o == "IGMMA" for _, o, _ in ops),
+            "imma": sum(o == "IMMA" for _, o, _ in ops),
             "loop": {"instructions": len(loop), "ffma": loop.count("FFMA"),
                      "lds": loop.count("LDS"), "stg": loop.count("STG")},
         }
@@ -185,6 +204,37 @@ def parse_sass(text: str) -> Dict[str, dict]:
             b = _SASS_BRANCH.match(m.group(3)) if m.group(2) == "BRA" else None
             ops.append((int(m.group(1), 16), m.group(2), int(b.group(1), 16) if b else None))
     close()
+    return out
+
+
+_PTXAS_FN = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_summary(text: str) -> Dict[str, dict]:
+    """Per kernel function (mangled name) of an nvcc build log with
+    `-Xptxas -v`: registers, static shared memory, stack frame and spill
+    bytes."""
+    out: Dict[str, dict] = {}
+    fn = None
+    for line in text.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": 0, "smem": 0, "stack": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if fn is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = _PTXAS_USED.search(line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            smem = _PTXAS_SMEM.search(line)
+            out[fn]["smem"] = int(smem.group(1)) if smem else 0
     return out
 
 

@@ -4,7 +4,7 @@
 
 Each variant is csrc/stem.cu with a few text edits (every anchor must occur
 in the source exactly once, or the script stops), built with the port's nvcc
-flags into yogo_tpu_torch/_build/variants/, all builds at once, and launched
+flags into yogo_tpu_torch/_build/variants/stem/, all builds at once, and launched
 through its own C entry point at B=64, 772x1032, C=16 on random uint8 images,
 in both layouts. The variants that still compute the stem are held against
 fused_stem_reference (rtol 8e-3, atol 1e-2). Times are CUDA-event medians of
@@ -16,17 +16,14 @@ Prints one line per timing and writes chiprun_out/stem_variants.json.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-from yogo_tpu_torch import kernels
 from yogo_tpu_torch.ops.stem import fused_stem_reference
+from yogo_tpu_torch.tools.timing import build_variants, card, cuda_ms
 
 B, H, W, C = 64, 772, 1032, 16
 RTOL, ATOL = 8e-3, 1e-2
@@ -60,61 +57,19 @@ VARIANTS = {
 }
 
 
-def variant_source(src: str, edits) -> str:
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise ValueError(f"anchor not found exactly once in csrc/stem.cu: {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def build(out_dir: Path) -> dict:
-    src = (kernels.CSRC_DIR / "stem.cu").read_text()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (edits, _, _) in VARIANTS.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(variant_source(src, edits))
-        procs[name] = subprocess.Popen(
-            [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        f = ctypes.CDLL(str(out_dir / f"{name}.so")).yogo_stem_launch
-        f.restype, f.argtypes = kernels.SOURCES["stem"]["yogo_stem_launch"]
-        libs[name] = f
-    return libs
-
-
-def cuda_ms(fn, reps: int = 10, per_rep: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(per_rep):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per_rep)
-    return statistics.median(times)
+def build() -> dict:
+    """The variants' C entry points."""
+    libs = build_variants("stem", {name: edits for name, (edits, _, _) in VARIANTS.items()})
+    return {name: lib.yogo_stem_launch for name, (lib, _) in libs.items()}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("stem_variants: CUDA is not available", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
-    libs = build(kernels.BUILD_DIR / "variants")
+    libs = build()
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randint(0, 256, (B, H, W), dtype=torch.uint8, device="cuda", generator=g)
     w = torch.randn(C, 9, device="cuda", generator=g) * 0.05
