@@ -105,7 +105,16 @@ Phases (any failure exits non-zero):
      files equal one process's); `--quantize` (rank 0's scales on both
      ranks, bit for bit; the int8 golden gates); ConvNeXt-Small's state
      bytes and peak per rank, replicated and --fsdp;
- 13. one JSON line per kernel ("kernels"), then the last line
+ 13. row-split inference (spatial_phase), base_model at 772x1032 with the
+     N = 2 and 4 row shards on the one card (devices=["cuda:0"] * N, not
+     scaling): the stem and int8 conv kernels on each shard's window
+     bit-equal to the unsplit launches' rows; the bf16 (both layouts), f32
+     and int8 golden gates through Predictor / predict with N stem and 3N
+     int8 conv launches a batch; `serve --spatial-parallel 2` and `serve
+     --data-parallel` over two replicas equal to the formatter over their
+     own forwards; bf16 / int8 forward ms for N = 1, 2, 4 at B=64, halo
+     bytes and the copy kernels' device ms;
+ 14. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -2472,6 +2481,290 @@ def parallel_phase(device_arg, imgs4, golden, smi, *, hw=HW, batch=TIMING_BATCH,
     return out
 
 
+SPATIAL_NS = (2, 4)
+# kernel kinds of a forward's device time, by the first of these words in
+# a kernel's lower-cased name (the rest are "other": BN, activations, casts)
+KERNEL_KINDS = (("copies", ("copy", "catarray")), ("stem", ("stem",)), ("int8_conv", ("int8",)),
+                ("convs", ("conv", "xmma", "cudnn", "sm90_", "implicit")))
+
+
+def device_ms_by_kind(fn, reps=3):
+    """Device time of one fn() call by kernel kind (KERNEL_KINDS; torch.profiler,
+    CUDA activity only) and its kernel count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    out.update(other=0.0, kernels=0.0)
+    for e in prof.key_averages():
+        ms = getattr(e, "device_time_total", 0) / 1e3 / reps
+        if ms <= 0:
+            continue
+        name = e.key.lower()
+        kind = next((k for k, words in KERNEL_KINDS if any(w in name for w in words)), "other")
+        out[kind] += ms
+        out["kernels"] += e.count / reps
+    out["total"] = sum(out[k] for k, _ in KERNEL_KINDS) + out["other"]
+    return out
+
+
+def host_enqueue_ms(fn, reps=10):
+    """Host time to enqueue one fn() call on an idle card (synchronized
+    before each; the device work is not waited for): median of `reps`."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def spatial_phase(device_arg, imgs4, golden, smi, *, ckpt=CKPT, batch=TIMING_BATCH, ns=SPATIAL_NS,
+                  timing=True):
+    """Phase 13: row-split inference (`--spatial-parallel N`,
+    parallel/spatial.py) on `ckpt` at its full size, the N row shards
+    mapped onto one device (devices=[dev] * N: the path on the card, not
+    scaling). device_arg None runs on the card; "cpu" rehearses the control
+    flow. For each N in `ns`:
+      1. the stem kernel on each shard's window of the golden frames, NHWC
+         and NCHW: the kept rows bit-equal to the unsplit launch's rows;
+      2. the bf16 main path, Predictor(devices=[dev] * N).forward_raw and
+         its count on the golden frames, the stem's launch counts set to 0
+         just before and read just after (N NHWC launches; at N = ns[0]
+         also the NCHW stack, N NCHW launches): per-image counts within +-2
+         of the golden, the difference from the unsplit port printed; f32
+         (TF32 off) within +-1;
+      3. int8 (the program calibrated once on the golden frames with the
+         unsplit forward): the int8 conv kernel on each shard's window of
+         the unsplit codes entering blocks 4-6, the kept rows bit-equal to
+         the unsplit launch's; the row-split program's forward with the
+         launch counts set to 0 just before (N stem, 3N int8 conv launches);
+         predict(quantize=True, spatial_parallel=N) on the golden scene
+         within the int8 gates;
+    then
+      4. `serve --spatial-parallel ns[0]` and `serve --data-parallel` over
+         two replicas, micro-batch 4: the golden frames as one raw batch
+         request equal the host formatter over the servers' own forwards
+         (each replica's half of the batch), per-image counts within +-2 of
+         the golden; the launches of that dispatch;
+      5. timing (timing=True) at B=`batch`: bf16 and int8 forward_raw for
+         N = 1 and `ns` (CUDA events), the halo bytes a batch, each
+         forward's device time by kernel kind (torch.profiler: the window
+         copies, stem, int8 conv, cuDNN convs, the rest) and the host's
+         time to enqueue it.
+    Returns (numbers for the report, launches by path); every check raises."""
+    import threading
+
+    from yogo_tpu_torch.infer import Predictor, predict
+    from yogo_tpu_torch.ops import int8_conv as ic
+    from yogo_tpu_torch.ops import quant
+    from yogo_tpu_torch.ops.postprocess import format_preds
+    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
+    from yogo_tpu_torch.ops.stem import fused_stem_nchw
+    from yogo_tpu_torch.parallel import spatial
+    from yogo_tpu_torch.serve import build_server, format_detections
+    from yogo_tpu_torch.serve_client import ServeClient
+    from yogo_tpu_torch.tools.golden_scene import int8_gates
+
+    dev = torch.device("cuda", 0) if device_arg is None else torch.device(device_arg)
+    on_card = dev.type == "cuda"
+    n_img = len(imgs4)
+    want_per_image = [len(golden[f"dets_{i}"]) for i in range(n_img)]
+    out, launches = {"n": list(ns)}, {}
+    t_phase = time.time()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counts(pred, raw):
+        return [int(pred.count(raw, torch.arange(n_img) == i).sum()) for i in range(n_img)]
+
+    def launched():
+        sync()
+        return {**dict(STEM_LAUNCHES), **dict(ic.LAUNCHES)}
+
+    def clear():
+        sync()
+        STEM_LAUNCHES.clear()
+        ic.LAUNCHES.clear()
+
+    pred1 = Predictor.from_checkpoint(ckpt, half=True, device=dev)
+    model, h = pred1.model, int(pred1.model.img_size[0])
+    plans = {n: spatial.plan_rows(model.defn.blocks, h, n) for n in ns}
+    per1 = counts(pred1, pred1.forward_raw(imgs4))
+
+    # ------------------------------------------- 1. the stem, shard by shard
+    x = torch.from_numpy(imgs4[:, 0].copy()).to(dev)
+    w9, b9 = (t.detach() for t in pred1.stack.folded_stem())
+    for layout in ("nhwc", "nchw"):
+        whole = fused_stem_nchw(x, w9, b9, layout=layout)
+        for n in ns:
+            lr = plans[n][0]
+            for k, ((lo, hi), (a, b, t)) in enumerate(zip(lr.own_out, lr.windows)):
+                part = fused_stem_nchw(x[:, a:b].contiguous(), w9, b9, layout=layout)
+                if not torch.equal(part[:, :, t:t + hi - lo], whole[:, :, lo:hi]):
+                    raise AssertionError(f"stem {layout} N={n} shard {k}: rows [{lo}, {hi}) differ "
+                                         "from the unsplit launch's")
+    out["stem_shards_bit_equal"] = {"layouts": ["nhwc", "nchw"], "n": list(ns),
+                                    "windows": {n: [list(w) for w in plans[n][0].windows] for n in ns}}
+    log(f"spatial: stem per shard bit-equal to the unsplit rows: {json.dumps(out['stem_shards_bit_equal'])}")
+
+    # ------------------------------------ 2. bf16 and f32 main path, golden
+    f32 = Predictor.from_checkpoint(ckpt, device=dev)
+    per1_f32 = counts(f32, f32.forward_raw(imgs4))
+    for n in ns:
+        rep = {}
+        variants = [("nhwc", pred1)]
+        if n == ns[0]:
+            variants.append(("nchw", Predictor.from_checkpoint(ckpt, half=True, device=dev,
+                                                               channels_last=False)))
+        for layout, base in variants:
+            pn = Predictor(base.model, base.stack, devices=[dev] * n)
+            clear()
+            raw = pn.forward_raw(imgs4)
+            got = launched()
+            per = counts(pn, raw)
+            if raw.shape != (n_img, *model.grid[::-1], 5 + model.num_classes) or \
+                    not torch.isfinite(raw.float()).all():
+                raise AssertionError(f"spatial bf16 {layout} N={n}: bad head {tuple(raw.shape)}")
+            if on_card and got.get(f"stem_{layout}", 0) != n:
+                raise AssertionError(f"spatial bf16 {layout} N={n}: stem launches {got}, not {n}")
+            if any(abs(a - b) > 2 for a, b in zip(per, want_per_image)):
+                raise AssertionError(f"spatial bf16 {layout} N={n}: counts {per} vs golden {want_per_image}")
+            rep[f"bf16_{layout}"] = {"per_image": per, "minus_unsplit": [a - b for a, b in zip(per, per1)],
+                                     "launches": got, "halo_bytes": pn.rows.halo_bytes}
+            launches[f"infer_bf16_{layout}_n{n}"] = got
+        pn = Predictor(f32.model, f32.stack, devices=[dev] * n)
+        per = counts(pn, pn.forward_raw(imgs4))
+        if any(abs(a - b) > 1 for a, b in zip(per, want_per_image)):
+            raise AssertionError(f"spatial f32 N={n}: counts {per} vs golden {want_per_image}")
+        rep["f32"] = {"per_image": per, "minus_unsplit": [a - b for a, b in zip(per, per1_f32)]}
+        out[f"n{n}"] = rep
+        log(f"spatial N={n} golden counts (golden {want_per_image}): " + json.dumps(rep))
+    del f32, pn
+
+    # --------------------------------------------------------------- 3. int8
+    pq = Predictor.from_checkpoint(ckpt, device=dev, quantize=True, calib=[imgs4])
+    qp = pq.qp
+    specs = model.defn.blocks
+    qblocks = [1 + j for j, b in enumerate(qp["blocks"]) if "w8" in b]
+    rec = []
+    quant.quantized_forward(model, qp, torch.from_numpy(imgs4).to(dev), decode=False, record=rec)
+    checked = 0
+    for i, codes in zip(qblocks, rec):
+        blk, spec = qp["blocks"][i - 1], specs[i]
+        s8 = i + 1 < len(specs) and "w8" in qp["blocks"][i]
+        kw = dict(cin=specs[i - 1].out, stride=spec.stride, padding=spec.padding, act=spec.act,
+                  out_scale=qp["scales"][i:i + 1] if s8 else None)
+        codes = codes.contiguous()
+        whole = ic.int8_conv(codes, blk["w8"], blk["deq"], blk["b"], **kw)
+        for n in ns:
+            lr = plans[n][i]
+            for k, ((lo, hi), (a, b, t)) in enumerate(zip(lr.own_out, lr.windows)):
+                part = ic.int8_conv(codes[:, a:b].contiguous(), blk["w8"], blk["deq"], blk["b"], **kw)
+                if not torch.equal(part[:, t:t + hi - lo], whole[:, lo:hi]):
+                    raise AssertionError(f"int8_conv block {i} N={n} shard {k}: rows [{lo}, {hi}) differ "
+                                         "from the unsplit launch's")
+                checked += 1
+    out["int8_conv_shards_bit_equal"] = {"blocks": qblocks, "shard_launches_checked": checked}
+    raw1 = pq.forward_raw(imgs4)
+    tmp_ctx = tempfile.TemporaryDirectory()
+    img_dir = Path(tmp_ctx.name) / "golden"
+    img_dir.mkdir()
+    for i in range(n_img):
+        write_png_gray(img_dir / f"g{i}.png", imgs4[i, 0])
+    for n in ns:
+        pn = Predictor(model, pq.stack, qp=qp, devices=[dev] * n)
+        clear()
+        raw = pn.forward_raw(imgs4)
+        got = launched()
+        if on_card and (got.get("stem_nhwc", 0) != n or got.get("int8_conv", 0) != len(qblocks) * n):
+            raise AssertionError(f"spatial int8 N={n}: launches {got}, not {n} stem and "
+                                 f"{len(qblocks) * n} int8 conv")
+        launches[f"infer_quantize_n{n}"] = got
+        max_dev = float((raw - raw1).abs().max())
+        preds = predict(ckpt, path_to_images=img_dir, return_full_predictions=True, batch_size=n_img,
+                        quantize=True, spatial_parallel=n, devices=[dev] * n)
+        gates = int8_gates([format_preds(p, obj_thresh=0.5, iou_thresh=0.5) for p in preds], golden)
+        if gates["failures"]:
+            raise AssertionError(f"spatial int8 N={n}: golden gates {gates}")
+        out[f"n{n}"]["int8"] = {"launches": got, "head_max_abs_dev_from_unsplit": max_dev,
+                                "golden": gates}
+        log(f"spatial int8 N={n}: " + json.dumps(out[f"n{n}"]["int8"]))
+    tmp_ctx.cleanup()
+
+    # ------------------------------------------------------------ 4. servers
+    thr = {"obj_thresh": 0.5, "iou_thresh": 0.5, "min_class_confidence_threshold": 0.0}
+    classes = list(pred1.meta.get("class_names") or pred1.meta.get("classes"))
+    frames = np.ascontiguousarray(imgs4)
+    for name, kw in ((f"serve_spatial_{ns[0]}", dict(spatial_parallel=ns[0], devices=[dev] * ns[0])),
+                     ("serve_data_parallel_2", dict(data_parallel=True, devices=[dev] * 2))):
+        srv = build_server(ckpt, port=0, half=True, batch_size=n_img, linger_ms=5.0, **kw)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            preds = srv.yogo_state["predictors"]
+            g = n_img // len(preds)
+            decoded = np.concatenate([p.forward(frames[k * g:(k + 1) * g]).cpu().numpy()
+                                      for k, p in enumerate(preds)])
+            want = [format_detections(d, classes, **thr) for d in decoded]
+            clear()
+            with ServeClient("127.0.0.1", srv.server_address[1], timeout=120) as c:
+                got = c.predict_many(frames)
+            got_launches = launched()
+            info = srv.yogo_info
+        finally:
+            srv.shutdown()
+            srv.yogo_batcher.shutdown()
+            srv.server_close()
+            th.join(timeout=30)
+        per = [sum(r["counts"].values()) for r in got]
+        if got != want:
+            raise AssertionError(f"{name}: answers differ from the host formatter over the server's forward")
+        if any(abs(a - b) > 2 for a, b in zip(per, want_per_image)):
+            raise AssertionError(f"{name}: counts {per} vs golden {want_per_image}")
+        stems = sum(len(p.devices) for p in preds)
+        if on_card and got_launches.get("stem_nhwc", 0) != stems:
+            raise AssertionError(f"{name}: one dispatch launched {got_launches}, not {stems} stems")
+        launches[name] = got_launches
+        out[name] = {"per_image": per, "replicas": len(preds), "launches_one_dispatch": got_launches,
+                     "spatial_parallel": info["spatial_parallel"],
+                     "data_parallel_devices": info["data_parallel_devices"], "bit_equal": True}
+        log(f"spatial {name}: " + json.dumps(out[name]))
+
+    # ------------------------------------------------------------- 5. timing
+    if timing and on_card:
+        big = torch.from_numpy(np.concatenate([imgs4] * (batch // n_img))).to(dev)
+        t = {"batch": batch, "card": smi, "bf16_forward_ms": {}, "int8_forward_ms": {},
+             "halo_bytes": {}, "device_ms_by_kind": {}, "host_enqueue_ms": {}}
+        for n in (1, *ns):
+            pb = pred1 if n == 1 else Predictor(model, pred1.stack, devices=[dev] * n)
+            p8 = pq if n == 1 else Predictor(model, pq.stack, qp=qp, devices=[dev] * n)
+            t["bf16_forward_ms"][n] = cuda_ms(lambda: pb.forward_raw(big), 10)
+            t["int8_forward_ms"][n] = cuda_ms(lambda: p8.forward_raw(big), 5, per_rep=5)
+            for name, p in (("bf16", pb), ("int8", p8)):
+                t["device_ms_by_kind"][f"{name}_n{n}"] = device_ms_by_kind(lambda: p.forward_raw(big))
+                t["host_enqueue_ms"][f"{name}_n{n}"] = host_enqueue_ms(lambda: p.forward_raw(big))
+            if n > 1:
+                pb.forward_raw(big)
+                t["halo_bytes"][n] = pb.rows.halo_bytes
+                p8.forward_raw(big)
+                t["halo_bytes"][f"{n}_int8"] = p8.rows.halo_bytes
+        out["timing"] = t
+        log(f"spatial timing (B={batch}, N shards on one card, {smi}): " + json.dumps(t))
+        del big
+    out["seconds"] = time.time() - t_phase
+    return out, launches
+
+
 def main() -> int:
     # ------------------------------------------------------------ 1. device
     if not torch.cuda.is_available():
@@ -2732,7 +3025,11 @@ def main() -> int:
     report["parallel"] = parallel_phase(None, imgs4, golden, smi)
     dp_launches = report["parallel"]["infer"]["launches"]
 
-    # ----------------------------------------------------------- 13. report
+    # ----------------------------------------------------------- 13. spatial
+    torch.cuda.empty_cache()
+    report["spatial"], sp_launches = spatial_phase(None, imgs4, golden, smi)
+
+    # ----------------------------------------------------------- 14. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -2749,6 +3046,13 @@ def main() -> int:
             "launches_export": report["export"]["stem_launches"],
             "launches_infer_data_parallel_by_rank": {
                 r: n["count"].get(f"stem_{layout}", 0) for r, n in dp_launches.items()},
+            # phase 13: one forward of the golden frames with N row shards
+            # on the card; one dispatch of each multi-device server
+            "launches_infer_spatial_by_n": {
+                n: sp_launches[f"infer_bf16_{layout}_n{n}"].get(f"stem_{layout}", 0)
+                for n in SPATIAL_NS if f"infer_bf16_{layout}_n{n}" in sp_launches},
+            "launches_serve_multi_device_one_dispatch": {
+                k: v.get(f"stem_{layout}", 0) for k, v in sp_launches.items() if k.startswith("serve")},
             "max_abs_err": max_err[layout],
             "ms": timing[layout]["ms"],
             "plain_ms": timing[layout]["plain_ms"],
@@ -2776,6 +3080,10 @@ def main() -> int:
         "launches_serve_quantize_b64": int8_launches["serve"]["int8_conv"],
         "launches_infer_quantize_data_parallel_by_rank": {
             r: n["quantize"].get("int8_conv", 0) for r, n in dp_launches.items()},
+        "launches_infer_quantize_spatial_by_n": {
+            n: sp_launches[f"infer_quantize_n{n}"].get("int8_conv", 0) for n in SPATIAL_NS},
+        "spatial_shard_launches_checked": report["spatial"]["int8_conv_shards_bit_equal"][
+            "shard_launches_checked"],
         "max_abs_err": report["int8"]["max_abs_err"],
         # the three quantized blocks of one B=64 forward, summed; by block beside
         "ms": total("ms"),

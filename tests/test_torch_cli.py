@@ -7,6 +7,7 @@ trained golden checkpoint against the JAX package's `yogo test`."""
 import argparse
 import json
 import pickle
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -85,7 +86,7 @@ def test_validators_accept_and_reject_like_the_jax_package_s(name, values):
         assert outcome(getattr(targs, name), v) == outcome(getattr(jargs, name), v)
 
 
-def test_global_parser_dispatches_three_subcommands_and_infer_keeps_its_flags(capsys):
+def test_global_parser_dispatches_three_subcommands_and_infer_keeps_its_flags(capsys, monkeypatch):
     p = targs.global_parser()
     assert p.parse_args(["train", "d.yml"]).task == "train"
     assert p.parse_args(["test", "m.ckpt", "d.yml"]).task == "test"
@@ -103,10 +104,35 @@ def test_global_parser_dispatches_three_subcommands_and_infer_keeps_its_flags(ca
                 ["serve", "m.ckpt", "--batch-size", "0"]):
         with pytest.raises(SystemExit):
             p.parse_args(bad)
-    # the flags of paths not ported yet parse, and the command raises
-    for argv, item in ((["serve", "m.ckpt", "--spatial-parallel", "2"], "item 15b"),):
-        with pytest.raises(NotImplementedError, match=item):
-            main([*argv, "--device", "cpu"])
+    # serve --spatial-parallel runs through main: each frame's rows split
+    # over 2 devices (handles to the CPU), its /healthz says so
+    import threading
+    import urllib.request
+
+    import yogo_tpu_torch.serve as serve_mod
+
+    built = []
+    build = serve_mod.build_server
+    monkeypatch.setattr(serve_mod, "build_server", lambda *a, **k: built.append(build(*a, **k)) or built[-1])
+    t = threading.Thread(target=main, args=(["serve", GOLDEN_CKPT, "--spatial-parallel", "2",
+                                             "--data-parallel", "--port", "0", "--device", "cpu"],))
+    t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while not built and t.is_alive():
+            assert time.monotonic() < deadline, "the server was never built"
+            time.sleep(0.05)
+        assert built, "serve exited before building its server"
+        port = built[0].server_address[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            info = json.loads(r.read())
+        # one data group of two row shards: two devices in all
+        assert (info["spatial_parallel"], info["data_parallel_devices"]) == (2, 2)
+    finally:
+        if built:
+            built[0].shutdown()
+        t.join(timeout=60)
+    assert not t.is_alive()
     # the parallel flags that are ported parse
     assert p.parse_args(["train", "d", "--fsdp"]).fsdp
     assert p.parse_args(["infer", "m.ckpt", "--path-to-images", "d", "--data-parallel"]).data_parallel

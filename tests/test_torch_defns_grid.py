@@ -87,7 +87,7 @@ def test_port_imports_no_jax():
     for new in ("data.loader", "data.packed_cache", "data.prefetch", "metrics.device_metrics",
                 "native", "utils.argparsers", "utils.logging", "utils.test_model",
                 "utils.export_model", "utils.onnx_proto", "utils.onnx_interp", "utils.cluster_anchors",
-                "utils.wandb_helpers", "ops.window_nms"):
+                "utils.wandb_helpers", "ops.window_nms", "parallel.spatial"):
         assert f"yogo_tpu_torch.{new}" in mods
 
 

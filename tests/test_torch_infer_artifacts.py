@@ -23,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_golden_detections import gen_test_images
 from yogo_tpu.infer import predict as jax_predict
@@ -150,22 +151,41 @@ def test_draw_boxes_and_a_malformed_image(img_dir, tmp_path):
 
 
 def test_unported_options_raise_naming_their_roadmap_items(img_dir, tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        predict(CKPT, path_to_images=img_dir, count_predictions=True, device="cpu",
-                spatial_parallel=2)
-    # --data-parallel in one process is the single-device path (the JAX
-    # package with one device builds no mesh)
+    # --spatial-parallel splits each image's rows over N devices (N handles
+    # to the CPU here), and --data-parallel in one process that sees one
+    # device is the single-device path (the JAX package with one device
+    # builds no mesh): the counts are the single-device ones
     counts = []
-    for kw in ({}, {"data_parallel": True}):
+    for kw in ({}, {"data_parallel": True}, {"spatial_parallel": 2},
+               {"spatial_parallel": 4, "data_parallel": True}):
         predict(CKPT, path_to_images=img_dir, count_predictions=True, device="cpu", batch_size=4,
                 **kw)
         counts.append(capsys.readouterr().out.strip())
-    assert counts[0] == counts[1] and counts[0].startswith("[('cell',")
+    assert counts == [counts[0]] * 4 and counts[0].startswith("[('cell',")
+    with pytest.raises(ValueError, match="divisible"):
+        predict(CKPT, path_to_images=img_dir, count_predictions=True, device="cpu",
+                spatial_parallel=5)
     with pytest.raises(ValueError, match="at the same time"):
         predict(CKPT, path_to_images=img_dir, save_preds=True, draw_boxes=True,
                 output_dir=str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="output_dir"):
         predict(CKPT, path_to_images=img_dir, save_preds=True, device="cpu")
+
+
+def test_data_parallel_in_one_process_that_sees_several_cards_raises_naming_torchrun(
+        img_dir, monkeypatch, capsys):
+    """One process a card: --data-parallel without a process group where
+    several cards are visible would run on one of them, so it raises (the
+    JAX package meshes them); with one card, or on the CPU, it runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for device in (None, "cuda", "cuda:1"):
+        with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+            predict(CKPT, path_to_images=img_dir, count_predictions=True, data_parallel=True,
+                    device=device)
+    predict(CKPT, path_to_images=img_dir, count_predictions=True, data_parallel=True, batch_size=4,
+            device="cpu")
+    assert capsys.readouterr().out.strip().startswith("[('cell',")
 
 
 def test_cli_save_npy_on_the_cpu(img_dir, tmp_path):

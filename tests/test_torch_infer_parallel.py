@@ -8,7 +8,9 @@ the rank that owns the image. Under --quantize rank 0 calibrates on its
 leading images and every rank runs its program: the scales are equal on
 the ranks bit for bit, and each count is within 1 of one process (JAX's
 gate, tests/test_multihost.py:432). What a multi-process run refuses
-(spatial-only, return_full_predictions, serve) raises."""
+(spatial-only, return_full_predictions, serve) raises. With
+--spatial-parallel 2 each rank splits its images' rows over its own two
+devices, and the counts are one process's."""
 
 from __future__ import annotations
 
@@ -77,6 +79,16 @@ def test_counts_equal_one_process_and_jax_and_rank_one_prints_none(scene, capsys
     got = count_lines(outs[0])
     assert got[:2] == [want, want], outs[0]  # the fused count path, the host path
     assert sum(n for _, n in ast.literal_eval(want)) > 0
+    assert count_lines(outs[1]) == []
+
+
+def test_spatial_parallel_under_two_ranks_counts_as_one_process(scene, capsys):
+    """`infer --data-parallel --spatial-parallel 2` at world 2: each rank
+    splits its own images' rows over its 2 devices; rank 0 prints one
+    process's counts."""
+    d, spec, outs = scene
+    want = one_process(spec, capsys)
+    assert count_lines(outs[0])[3] == want, outs[0]
     assert count_lines(outs[1]) == []
 
 

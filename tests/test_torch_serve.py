@@ -1,6 +1,7 @@
 """The port's HTTP server (yogo_tpu_torch/serve.py) on the CPU: the cases of
-tests/test_serve.py that need no data / spatial parallelism or int8, on
-tests/goldens/trained_half_filters.ckpt (96x128, float32).
+tests/test_serve.py, on tests/goldens/trained_half_filters.ckpt (96x128,
+float32); `--spatial-parallel` and `--data-parallel` run over handles to
+the CPU (`devices=["cpu", "cpu"]` for two replicas).
 
 Tolerances: a served response is BIT-equal (JSON-level) to the port's host
 formatter over Predictor.forward of the same pixels in a batch of the
@@ -452,13 +453,77 @@ def test_serve_rejects_duplicate_class_names():
         build_server(CKPT, port=0, class_names=["cell", "cell"], device="cpu")
 
 
-def test_unported_options_raise_naming_their_roadmap_items(request):
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        build_server(CKPT, port=0, device="cpu", spatial_parallel=4)
+def test_unported_options_raise_naming_their_roadmap_items(request, imgs):
+    # --spatial-parallel serves each frame's rows split over N devices (N
+    # handles to the CPU here) and reports N
+    srv = start(request, spatial_parallel=4, batch_size=2)
+    info = get(srv.server_address[1], "/healthz")
+    assert info["spatial_parallel"] == 4 and info["data_parallel_devices"] == 1
+    assert srv.yogo_state["predictor"].rows is not None
+    status, resp = post(srv.server_address[1], imgs[0][None].tobytes(),
+                        content_type="application/octet-stream")
+    assert status == 200 and sum(resp["counts"].values()) > 0
     # --data-parallel in a process that sees one device is the
     # single-device server, as the JAX package's (a mesh only over several)
     srv = start(request, data_parallel=True)
     assert srv.yogo_info["data_parallel_devices"] == 1
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_serve_spatial_parallel_matches_single_device(request, server, imgs, n):
+    """tests/test_serve.py:797's case: a server whose frames' rows are split
+    over N devices answers as the single-device server, counts exact and
+    boxes within rtol 1e-4 / atol 1e-5 (the same convs over other row
+    slices); /healthz reports N; a height N does not divide is refused at
+    start-up."""
+    srv = start(request, batch_size=2, linger_ms=1.0, spatial_parallel=n)
+    assert get(srv.server_address[1], "/healthz")["spatial_parallel"] == n
+    for img in imgs[:2]:
+        s1, single = post(server.server_address[1], png_bytes(img))
+        s2, split = post(srv.server_address[1], png_bytes(img))
+        assert s1 == s2 == 200 and single["counts"] == split["counts"]
+        assert len(single["detections"]) == len(split["detections"]) > 0
+        for a, b in zip(single["detections"], split["detections"]):
+            assert a["class_idx"] == b["class_idx"]
+            np.testing.assert_allclose(a["bbox_cxcywh"], b["bbox_cxcywh"], rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        build_server(CKPT, port=0, spatial_parallel=5, device="cpu")
+
+
+def test_serve_data_parallel_over_two_devices_splits_each_micro_batch(request, imgs):
+    """--data-parallel over an explicit list of two devices: two replicas,
+    the batch rounded up to a multiple of two, each micro-batch's rows split
+    over them; every answer is one replica's, i.e. the formatter over
+    Predictor.forward of that replica's half of the batch, bit for bit,
+    also through the full-slice fallback of the second replica's head. A
+    reload swaps both replicas."""
+    srv = start(request, batch_size=3, linger_ms=50.0, data_parallel=True, devices=["cpu", "cpu"],
+                fetch_top_k=4)
+    port = srv.server_address[1]
+    info = get(port, "/healthz")
+    assert info["data_parallel_devices"] == 2 and info["spatial_parallel"] == 1
+    assert info["batch_size"] == 4 and len(srv.yogo_state["predictors"]) == 2
+    frames = np.stack(imgs)[:, None]
+    status, resp = post(port, frames.tobytes(), path="/predict?obj_thresh=0.01",
+                        content_type="application/octet-stream")
+    assert status == 200 and len(resp["results"]) == 4
+    pred = Predictor.from_checkpoint(CKPT, device="cpu")
+    want = np.concatenate([pred.forward(frames[:2]).numpy(), pred.forward(frames[2:]).numpy()])
+    for i in range(4):
+        assert resp["results"][i] == expected(want[i], obj_thresh=0.01, iou_thresh=0.5,
+                                              min_class_confidence_threshold=0.0), i
+    # at obj_thresh 0.01 the 4 candidates do not hold every cell: each
+    # frame took its replica's full-slice fallback
+    assert ((want[:, 4] > 0.01).sum((1, 2)) > 4).all()  # the premise
+    assert get(port, "/metrics")["full_fetch_fallbacks"] == 4
+    old = srv.yogo_state["predictors"]
+    assert srv.reload_checkpoint()["ok"]
+    new = srv.yogo_state["predictors"]
+    assert len(new) == 2 and not set(map(id, new)) & set(map(id, old))
+    assert srv.yogo_state["predictor"] is new[0]
+    status, again = post(port, frames.tobytes(), path="/predict?obj_thresh=0.01",
+                         content_type="application/octet-stream")
+    assert status == 200 and again == resp
 
 
 def test_serve_normalized_checkpoint_parity(request, tmp_path):

@@ -161,7 +161,7 @@ def test_trainer_end_to_end_accumulate(tmp_path):
 
 def test_unported_options_raise_and_the_default_device_is_the_card(tmp_path):
     cfg = base_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    with pytest.raises(NotImplementedError, match="item 15b-2"):
         Trainer(dict(cfg, spatial_parallel=2), device="cpu")
     # --fsdp runs; in one process there is nothing to shard
     t = cpu_trainer(dict(cfg, fsdp=True))
@@ -184,6 +184,29 @@ def test_unported_options_raise_and_the_default_device_is_the_card(tmp_path):
         Trainer.test([], {"class_names": CLASSES}, None, None)
     with pytest.raises(RuntimeError, match="not initialized"):
         Trainer(dict(cfg), device="cpu").train()
+
+
+def test_one_process_that_sees_several_cards_says_which_one_it_trains_on(tmp_path, monkeypatch,
+                                                                          capsys):
+    """The port trains one process a card: a process that sees several
+    prints one line naming its card and torchrun (the JAX package's
+    Trainer would mesh them all); one card, or the CPU, prints nothing."""
+    cfg = base_config(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(ttrain, "local_device", lambda device=None: torch.device("cuda", 0))
+    monkeypatch.setattr(ttrain, "device_name", lambda device: "a card")
+    for n in (1, 3):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda n=n: n)
+        t = Trainer(dict(cfg))
+        assert t.device == torch.device("cuda", 0)
+        lines = capsys.readouterr().out.strip().splitlines()
+        if n == 1:
+            assert lines == []
+        else:
+            assert len(lines) == 1 and "cuda:0" in lines[0] and "torchrun --nproc-per-node 3" in lines[0]
+    monkeypatch.setattr(ttrain, "local_device", lambda device=None: torch.device("cpu"))
+    Trainer(dict(cfg), device="cpu")
+    assert capsys.readouterr().out == ""
 
 
 def test_trainer_rejects_mismatched_pretrained_size(tmp_path):

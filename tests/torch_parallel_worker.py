@@ -310,6 +310,10 @@ def mode_infer(in_dir, out_dir, rank, world):
     infer.quant_program_of_rank0 = spy
     print("INT8", flush=True)
     infer.predict(spec["ckpt_q"], quantize=True, **common)
+    infer.quant_program_of_rank0 = orig
+    # each rank splits its images' rows over its own 2 devices
+    print("SPATIAL", flush=True)
+    infer.predict(spec["ckpt"], spatial_parallel=2, **common)
     _dump(out_dir, "infer", rank, {"scales": programs})
 
 

@@ -19,8 +19,16 @@
     runs as many batch rounds (fully masked ones where its chunk is
     shorter), the counts are summed over the ranks and printed by rank 0,
     and each rank writes the artifacts of its own images (the .npy as
-    `<name>.p<rank>.npy`, image ids global). In one process it is the
-    single-device path, as the JAX package with one device builds no mesh.
+    `<name>.p<rank>.npy`, image ids global). In one process that sees one
+    device it is the single-device path, as the JAX package with one
+    device builds no mesh; one process that sees several cards raises
+    (the port runs one process a card, where JAX meshes them);
+  - `--spatial-parallel N` splits each image's rows over N devices
+    (parallel/spatial.py: halo rows copied between the shards, the stem
+    and int8 conv kernels launched once a shard): N cards of one process,
+    N handles to the CPU with `--device cpu`, or each rank's own N cards
+    under torchrun with `--data-parallel`; the head is gathered to the
+    first device and everything after the forward runs as on one device.
 
 Output artifacts keep the reference schemas: YOLO-format txt prediction
 files, the scope (8+C, N) .npy array with its JSON sidecar, drawn images and
@@ -35,7 +43,7 @@ import json
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Literal, Optional, Union
+from typing import List, Literal, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -60,7 +68,14 @@ from yogo_tpu_torch.ops.postprocess import (
     scatter_candidates,
     select_top_candidates_raw,
 )
-from yogo_tpu_torch.parallel.distributed import all_reduce_sum, local_device, process_shard
+from yogo_tpu_torch.parallel.distributed import (
+    all_reduce_sum,
+    collective_device,
+    local_device,
+    process_shard,
+)
+from yogo_tpu_torch.parallel.mesh import as_device, device_grid, replicate
+from yogo_tpu_torch.parallel.spatial import RowSplit
 from yogo_tpu_torch.utils.checkpoint import load_any
 from yogo_tpu_torch.utils.weights import state_dict_from_flax
 
@@ -89,13 +104,18 @@ def load_model(
 
 
 class Predictor:
-    """A loaded model on one device and the per-batch steps of predict():
+    """A loaded model and the per-batch steps of predict():
     `forward_raw` (uint8 batch -> NHWC head), `count` (head + image mask ->
     per-class counts on the device), `forward` (decoded predictions) and
     the candidate fetch (`candidates`, `decode_slice`). With `qp` (the int8
     program of the family's ops/quant.family_quant_plan, on the module's
     device) both forwards run the family's quantized forward, whose head
-    is f32."""
+    is f32.
+
+    `devices` (N > 1 entries, the first the module's) splits each image's
+    rows over them (parallel/spatial.py): the stack and `qp` are copied to
+    the other devices, the forwards run row-split and leave the head on the
+    first device, where every other step runs unchanged."""
 
     def __init__(
         self,
@@ -108,16 +128,37 @@ class Predictor:
         max_detections: int = INFER_COUNT_MAX_DETECTIONS,
         meta: Optional[dict] = None,
         qp: Optional[dict] = None,
+        devices: Optional[Sequence] = None,
     ):
         self.model = model
         self.meta = meta or {}
         self.stack = stack
-        self.qp = qp
         self.device = next(stack.parameters()).device
+        self.devices = [as_device(d) for d in devices] if devices else [self.device]
+        if self.devices[0] != self.device:
+            raise ValueError(f"the module is on {self.device}, the first row shard on {self.devices[0]}")
+        self.rows = RowSplit(model, self.devices) if len(self.devices) > 1 else None
+        self.qp = qp
         self.obj_thresh = obj_thresh
         self.iou_thresh = iou_thresh
         self.min_class_confidence_threshold = min_class_confidence_threshold
         self.max_detections = max_detections
+
+    @property
+    def qp(self) -> Optional[dict]:
+        return self._qp
+
+    @qp.setter
+    def qp(self, qp: Optional[dict]) -> None:
+        """Set the int8 program (None: the float stack); row-split, every
+        shard's device gets its copy of the stack and program now."""
+        self._qp = qp
+        if self.rows is not None:
+            copies = {}
+            for d in self.devices:
+                if d not in copies:
+                    copies[d] = replicate(self.stack, qp, d)
+            self.shard_weights = [copies[d] for d in self.devices]
 
     @classmethod
     def from_checkpoint(
@@ -130,17 +171,24 @@ class Predictor:
         vertical_crop_height: Optional[float] = None,
         quantize: bool = False,
         calib=(),
+        devices: Optional[Sequence] = None,
         **thresholds,
     ) -> "Predictor":
-        """Load a .ckpt or .pth onto `device` (default CUDA), as load_model.
-        quantize=True builds the int8 program, calibrated on `calib` (a
-        list of NCHW batches; unused when the program holds no int8 conv)."""
+        """Load a .ckpt or .pth onto `device` (default CUDA; with `devices`,
+        their first), as load_model. quantize=True builds the int8 program,
+        calibrated on `calib` (a list of NCHW batches; unused when the
+        program holds no int8 conv) with the unsplit forward on that device,
+        then copied to the others."""
+        if devices:
+            device = devices[0]
         model, stack, meta = load_model(
             path_to_ckpt, half=half, device=device, channels_last=channels_last,
             vertical_crop_height=vertical_crop_height,
         )
+        if devices:
+            RowSplit(model, devices)  # refuse a height or family that does not split before calibrating
         qp = quantize_stack(model, stack, calib) if quantize else None
-        return cls(model, stack, meta=meta, qp=qp, **thresholds)
+        return cls(model, stack, meta=meta, qp=qp, devices=devices, **thresholds)
 
     def to_device(self, imgs) -> torch.Tensor:
         """(B, C, H, W) numpy or tensor -> tensor on the model's device."""
@@ -150,6 +198,8 @@ class Predictor:
 
     def forward_raw(self, imgs) -> torch.Tensor:
         """(B, C, H, W) batch -> undecoded NHWC head (B, Sy, Sx, 5+C)."""
+        if self.rows is not None:
+            return self.rows.forward_raw(self.shard_weights, self.to_device(imgs))
         if self.qp is not None:
             fwd = family_quant_forward(self.model)
             return fwd(self.model, self.qp, self.to_device(imgs), decode=False)
@@ -158,6 +208,9 @@ class Predictor:
     def forward(self, imgs) -> torch.Tensor:
         """(B, C, H, W) batch -> decoded (B, 5+C, Sy, Sx) f32, class
         softmax applied."""
+        if self.rows is not None:
+            with torch.inference_mode():
+                return self.model._decode_raw(self.forward_raw(imgs), inference=True)
         if self.qp is not None:
             fwd = family_quant_forward(self.model)
             return fwd(self.model, self.qp, self.to_device(imgs), inference=True)
@@ -216,6 +269,21 @@ def quantize_stack(model: YOGO, stack: nn.Module, calib) -> dict:
     device = next(stack.parameters()).device
     build_qp, _, n_scales, _ = family_quant_plan(model, stack, device=device)
     return quant_program_of_rank0(build_qp, n_scales, calib, device)
+
+
+def _refuse_several_cards(device) -> None:
+    """--data-parallel without a process group, on the cards: refused where
+    several are visible, since the port runs one process a card (torchrun)
+    where the JAX package meshes every local device."""
+    if device is not None and torch.device(device).type != "cuda":
+        return
+    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        raise RuntimeError(
+            f"--data-parallel in one process that sees {n} cards would run on one of them; "
+            f"launch one process a card: torchrun --nproc-per-node {n} -m yogo_tpu_torch "
+            "infer ... --data-parallel"
+        )
 
 
 def save_predictions(fnames, batch_preds, obj_thresh=0.5, iou_thresh=0.5):
@@ -281,6 +349,7 @@ def predict(
     spatial_parallel: int = 1,
     fetch_top_k: int = 512,
     device=None,
+    devices: Optional[Sequence] = None,
 ) -> Optional[np.ndarray]:
     """Mirrors yogo_tpu.infer.predict (default device: the rank's card;
     device="cpu" runs on the CPU). Prints the per-class counts with
@@ -289,8 +358,13 @@ def predict(
     int8 program (ops/quant.py), calibrated on the run's first batch_size
     images (rank 0's, under data_parallel in a process group: every rank
     runs its program). `data_parallel` splits the images over the ranks of
-    the process group (see the module docstring); `spatial_parallel` > 1
-    waits for ROADMAP.md Queue 1 item 15b and raises."""
+    the process group (see the module docstring); in one process that
+    sees several cards it raises (one process a card: torchrun).
+    `spatial_parallel` N > 1 splits each image's rows over N devices
+    (parallel/spatial.py; parallel/mesh.device_grid picks them: N handles
+    to the CPU with device="cpu", cards cuda:0..N-1, or a rank's own N
+    cards under torchrun); `devices` names them explicitly (its first N,
+    e.g. ["cuda:0"] * N)."""
     rank, world = process_shard()
     mh = data_parallel and world > 1
     if world > 1 and (data_parallel or spatial_parallel > 1):
@@ -305,11 +379,6 @@ def predict(
                 "process holds only its own images' predictions); use "
                 "save_npy and merge the per-process .npy files"
             )
-    if spatial_parallel > 1:
-        raise NotImplementedError(
-            "--spatial-parallel (row-split convs with halo exchange) is not "
-            "ported yet (ROADMAP.md Queue 1 item 15b)"
-        )
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     if save_preds and draw_boxes:
@@ -331,10 +400,18 @@ def predict(
             f"filetype; got {output_img_ftype}"
         )
 
-    device = local_device(device) if world > 1 else resolve_device(device)
+    if data_parallel and world == 1 and devices is None:
+        _refuse_several_cards(device)
+    if spatial_parallel > 1 or devices:
+        # this process's (or rank's) row shards: one group of N devices
+        devices = device_grid(spatial_parallel, devices=devices, device=device)[0]
+    if devices:
+        device = as_device(devices[0])
+    else:
+        device = local_device(device) if world > 1 else resolve_device(device)
     pred = Predictor.from_checkpoint(
         path_to_ckpt, half=half, device=device, vertical_crop_height=vertical_crop_height,
-        obj_thresh=obj_thresh, iou_thresh=iou_thresh,
+        devices=devices, obj_thresh=obj_thresh, iou_thresh=iou_thresh,
         min_class_confidence_threshold=min_class_confidence_threshold,
         max_detections=max_detections,
     )
@@ -540,7 +617,8 @@ def predict(
     if count_predictions:
         counts = torch.from_numpy(host_counts).to(device) if needs_full else tot_counts
         if mh:
-            counts = all_reduce_sum(counts)  # each rank counted its own images
+            # each rank counted its own images
+            counts = all_reduce_sum(counts.to(collective_device(counts.device)))
         if rank == 0 or not mh:
             print(list(zip(class_names or range(num_classes), map(int, counts.cpu().numpy()))))
 

@@ -47,7 +47,7 @@ from yogo_tpu_torch.models.defns import ConvSpec
 from yogo_tpu_torch.models.yogo import YOGO, ConvStack, _activation, no_tf32, resolve_device
 from yogo_tpu_torch.ops.int8_conv import int8_conv, pack_weights, padded_channels
 from yogo_tpu_torch.ops.stem import fused_stem_nchw
-from yogo_tpu_torch.parallel.distributed import broadcast_from_rank0, process_shard
+from yogo_tpu_torch.parallel.distributed import broadcast_from_rank0, collective_device, process_shard
 from yogo_tpu_torch.utils.weights import flax_from_state_dict
 
 # conv_stack activations this path is validated for; anything else must
@@ -411,10 +411,11 @@ def quant_program_of_rank0(build_qp, n_scales: int, calib_batches, device) -> Di
     if world == 1:
         return build_qp(calib_batches)
     qp = build_qp(calib_batches) if rank == 0 else None
+    on = collective_device(torch.device(device))
     payload = (
-        qp["scales"].to(device=device, dtype=torch.float32).clone()
+        qp["scales"].to(device=on, dtype=torch.float32).clone()
         if rank == 0
-        else torch.zeros(n_scales, dtype=torch.float32, device=device)
+        else torch.zeros(n_scales, dtype=torch.float32, device=on)
     )
     broadcast_from_rank0(payload)
     return qp if rank == 0 else build_qp([], act_scales=payload.cpu().numpy())
@@ -525,14 +526,20 @@ def quantize_conv_stack(
     return qp
 
 
-def _block0(model: YOGO, qp, x: torch.Tensor, to_bf16: bool) -> torch.Tensor:
-    """Block 0 of the int8 program: the fused stem kernel with the
-    bf16-rounded folded weights when the next block is bf16 and the input
-    is raw uint8 (bf16 channels_last out); else the f32 conv over the
-    bf16-rounded input and weights (f32 out)."""
+def block0_takes_stem(model: YOGO, qp, x: torch.Tensor) -> bool:
+    """Whether block 0 of the int8 program runs as the fused stem kernel
+    on the batch x: when block 1 is bf16 and the kernel takes x."""
+    return "w8" not in qp["blocks"][0] and model.stem_kernel_takes(x)
+
+
+def quant_block0(model: YOGO, qp, x: torch.Tensor, *, stem: bool) -> torch.Tensor:
+    """Block 0 of the int8 program: with `stem` (block0_takes_stem of the
+    whole batch) the fused stem kernel with the bf16-rounded folded weights
+    (bf16 channels_last out); else the f32 conv over the bf16-rounded input
+    and weights (f32 out)."""
     spec = model.defn.blocks[0]
     w, b = qp["stem_w"], qp["stem_b"]
-    if to_bf16 and model.stem_kernel_takes(x):
+    if stem:
         w9 = w.float().reshape(w.shape[0], 9)
         return fused_stem_nchw(x[:, 0].contiguous(), w9, b, layout="nhwc")
     xf = x if x.is_floating_point() else x.float()
@@ -561,6 +568,35 @@ def requant(h: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return F.pad(q, (0, padded_channels(c) - c)).contiguous()
 
 
+def quant_block(
+    model: YOGO, qp: Dict[str, Any], j: int, h: torch.Tensor, record: Optional[list] = None
+) -> torch.Tensor:
+    """Block 1 + j of the int8 program on its input h: f32 or bf16 NCHW, or
+    the int8 NHWC codes a quantized block before it wrote. A skipped block
+    is f32 out; a quantized one requantizes a float h, runs the int8 conv
+    kernel and gives the next quantized block's codes, or f32 NCHW (a view
+    of the kernel's NHWC output). `record`, if a list, receives the codes
+    entering a quantized block, (B, H, W, Cin) NHWC."""
+    specs = model.defn.blocks
+    blocks = qp["blocks"]
+    scales = qp["scales"]
+    blk, spec = blocks[j], specs[1 + j]
+    if "w8" not in blk:
+        return _bf16_block(h, blk, spec)
+    cin = specs[j].out
+    q = h if h.dtype == torch.int8 else requant(h, scales[j])
+    if record is not None:
+        record.append(q[..., :cin])
+    nxt = blocks[j + 1] if j + 1 < len(blocks) else None
+    out_s8 = nxt is not None and "w8" in nxt
+    h = int8_conv(
+        q, blk["w8"], blk["deq"], blk["b"], cin=cin, stride=spec.stride,
+        padding=spec.padding, act=spec.act,
+        out_scale=scales[j + 1 : j + 2] if out_s8 else None,
+    )
+    return h if out_s8 else h.permute(0, 3, 1, 2)  # NCHW view of the NHWC f32 output
+
+
 def quantized_forward(
     model: YOGO,
     qp: Dict[str, Any],
@@ -577,30 +613,11 @@ def quantized_forward(
     conv kernel; the activation between blocks is f32 (the JAX default
     intermediate_dtype). `record`, if a list, receives the int8 codes
     entering each quantized block, (B, H, W, Cin) NHWC."""
-    specs = model.defn.blocks
-    blocks = qp["blocks"]
-    scales = qp["scales"]
     x = YOGO._to_nchw(x)
     with torch.inference_mode(), no_tf32(x.device):
-        h = _block0(model, qp, x, to_bf16="w8" not in blocks[0])
-        for j, blk in enumerate(blocks):
-            spec = specs[1 + j]
-            if "w8" not in blk:
-                h = _bf16_block(h, blk, spec)
-                continue
-            cin = specs[j].out
-            q = h if h.dtype == torch.int8 else requant(h, scales[j])
-            if record is not None:
-                record.append(q[..., :cin])
-            nxt = blocks[j + 1] if j + 1 < len(blocks) else None
-            out_s8 = nxt is not None and "w8" in nxt
-            h = int8_conv(
-                q, blk["w8"], blk["deq"], blk["b"], cin=cin, stride=spec.stride,
-                padding=spec.padding, act=spec.act,
-                out_scale=scales[j + 1 : j + 2] if out_s8 else None,
-            )
-            if not out_s8:
-                h = h.permute(0, 3, 1, 2)  # NCHW view of the NHWC f32 output
+        h = quant_block0(model, qp, x, stem=block0_takes_stem(model, qp, x))
+        for j in range(len(qp["blocks"])):
+            h = quant_block(model, qp, j, h, record)
         raw = h.permute(0, 2, 3, 1)
         if not decode:
             return raw

@@ -61,6 +61,16 @@ def local_device(device_arg=None) -> torch.device:
     return dev
 
 
+def collective_device(device: torch.device) -> torch.device:
+    """Where this rank's collectives on a tensor of `device` run: under
+    NCCL the card the group is bound to (cuda:LOCAL_RANK; a rank of a
+    row-split run holds other cards too), else `device`."""
+    if device.type == "cuda" and dist.is_available() and dist.is_initialized() \
+            and dist.get_backend() == "nccl":
+        return torch.device("cuda", _env_int("LOCAL_RANK") or 0)
+    return device
+
+
 def initialize_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,

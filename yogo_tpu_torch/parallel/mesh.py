@@ -23,7 +23,12 @@ and the collectives are explicit. What took the place of each JAX helper:
     (`fully_shard_stack`), and `full_state_dict` to gather it back;
   - fetch_local_rows: a rank's output already is its own rows;
     `gather_rows` is its inverse, the all_gather of every rank's rows;
-  - local_rows: the same slice of a global-batch array.
+  - local_rows: the same slice of a global-batch array;
+  - get_mesh_2d's device selection (yogo_tpu/infer.py:251-278,
+    yogo_tpu/serve.py:451-475): `device_grid`, a list of data groups of
+    n_space devices each, which `infer` and `serve` build their
+    row-split Predictors on (parallel/spatial.py); replicate_to_mesh of
+    the weights and the int8 program: `replicate`.
 
 The pad helpers are the JAX package's: padded rows are copies of row 0 with
 mask 0, and they enter the BatchNorm statistics as they do in JAX.
@@ -31,7 +36,9 @@ mask 0, and they enter the BatchNorm statistics as they do in JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import copy
+import os
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +91,101 @@ def validate_spatial_height(n_space: int, img_h: int) -> None:
             f"size {n_space}; pick a spatial factor that divides the height "
             f"(772 allows 2 or 4) or crop to a divisible height"
         )
+
+
+def as_device(d) -> torch.device:
+    """d as a torch.device; a card named without an index is the current one."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def device_grid(
+    n_space: int = 1,
+    data_parallel: bool = False,
+    *,
+    devices: Optional[Sequence] = None,
+    device=None,
+) -> List[List[torch.device]]:
+    """The devices of a run as data groups of `n_space` row shards each
+    (the port of get_mesh_2d's selection): a list of groups, each a list
+    of n_space devices.
+
+      - `devices` given: that list, its first n_space entries unless
+        data_parallel (tests and chip_smoke.py map N shards onto one card
+        with ["cuda:0"] * N);
+      - `device` a non-CUDA device ("cpu"): n_space handles to it, one
+        group;
+      - else the cards: under a process group each rank takes its own
+        n_space cards, cuda:LOCAL_RANK*n_space onwards (the JAX package's
+        per-process device count that n_space divides), one group a rank;
+        in one process spatial-only takes exactly n_space cards (from
+        `device`'s index), and data_parallel every visible card.
+    n_space must divide the device count. Too few cards raise, naming the
+    count; nothing falls back to fewer devices or to the CPU."""
+    if n_space < 1:
+        raise ValueError(f"spatial_parallel must be >= 1, got {n_space}")
+    if devices is not None:
+        devs = [as_device(d) for d in devices]
+        if not data_parallel:
+            if len(devs) < n_space:
+                raise ValueError(f"spatial_parallel={n_space} needs {n_space} devices, got {len(devs)}")
+            devs = devs[:n_space]
+    elif device is not None and torch.device(device).type != "cuda":
+        devs = [torch.device(device)] * n_space
+    else:
+        devs = _cards(n_space, data_parallel, device)
+    if not devs or len(devs) % n_space:
+        raise ValueError(
+            f"spatial axis size {n_space} must divide the device count {len(devs)}"
+        )
+    return [devs[g: g + n_space] for g in range(0, len(devs), n_space)]
+
+
+def _cards(n_space: int, data_parallel: bool, device) -> List[torch.device]:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (--device cpu) to run on the CPU"
+        )
+    count = torch.cuda.device_count()
+    world = world_size()
+    if world > 1:
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if count < local_world * n_space:
+            raise ValueError(
+                f"{local_world} ranks on this node with spatial_parallel={n_space} "
+                f"need {local_world * n_space} cards; {count} are visible"
+            )
+        first = int(os.environ.get("LOCAL_RANK", 0)) * n_space
+    elif data_parallel:
+        return [torch.device("cuda", i) for i in range(count)]
+    else:
+        first = (torch.device(device).index or 0) if device is not None else 0
+        if count < first + n_space:
+            raise ValueError(
+                f"spatial_parallel={n_space} from cuda:{first} needs {first + n_space} "
+                f"cards; {count} are visible"
+            )
+    return [torch.device("cuda", first + i) for i in range(n_space)]
+
+
+def replicate(stack: nn.Module, qp: Optional[Dict[str, Any]], device: torch.device):
+    """(stack, int8 program) on `device`: the same objects where they
+    already are there, else copies (replicate_to_mesh of one device)."""
+    if next(stack.parameters()).device == device:
+        return stack, qp
+    return copy.deepcopy(stack).to(device), _tree_to(qp, device)
+
+
+def _tree_to(tree, device: torch.device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree
 
 
 def local_rows(global_np: np.ndarray, local_batch: int) -> np.ndarray:

@@ -1,9 +1,14 @@
 """`python -m yogo_tpu_torch serve`: an HTTP inference server (port of
 yogo_tpu/serve.py; the reference ships only batch CLI inference).
 
-  - ONE loaded model on one device, warmed up before the first request
-    (cuDNN's algorithm choice, the stem kernel's build and load happen
-    then, not under a request).
+  - ONE loaded model, warmed up before the first request (cuDNN's
+    algorithm choice, the kernels' build and load happen then, not under a
+    request), on one device, or on a grid of devices (parallel/mesh.
+    device_grid, as the JAX package's mesh): `--spatial-parallel N` splits
+    each frame's rows over N devices (parallel/spatial.py), and
+    `--data-parallel` serves one replica a group of N over every visible
+    device, each micro-batch split over the replicas (the batch size
+    rounded up to a multiple of the group count).
   - MICRO-BATCHING: concurrent requests are coalesced by a collector thread
     into one fixed-shape dispatch (pad + discard, the contract of infer.py);
     `linger_ms` bounds the added latency. A fetcher thread waits for each
@@ -11,9 +16,10 @@ yogo_tpu/serve.py; the reference ships only batch CLI inference).
     uploaded and enqueued while batch N computes (`pipeline_depth`).
   - On the card each in-flight batch owns a slot of pinned host buffers: the
     frames are assembled into the slot's input buffer and uploaded from it,
-    the top-K candidate rows come back into its output buffers, and a CUDA
-    event recorded after that copy is all the fetcher waits for - never a
-    later batch's forward. A slot is reused only after its event.
+    the top-K candidate rows come back into its output buffers, and the
+    CUDA events recorded after that copy (one a data group, on its first
+    device) are all the fetcher waits for - never a later batch's forward.
+    A slot is reused only after its events.
   - stdlib only on the wire (http.server + threading).
 
 Protocol (JSON over HTTP), the JAX package's:
@@ -39,10 +45,9 @@ format_preds on the full decoded forward of the same pixels, bit for bit.
 
 `--quantize` serves the int8 program (ops/quant.py), calibrated on up to
 max(batch_size, 8) images of `--calibration-images`; the server keeps those
-batches, and a hot reload recalibrates on them. `--data-parallel` in a
-process that sees one device is this single-device server, as in the JAX
-package; over several cards it and `--spatial-parallel` wait for ROADMAP.md
-Queue 1 item 15b and raise, and a multi-process server raises.
+batches, and a hot reload recalibrates on them (once, on the first device,
+copied to the others). A multi-process server raises: serve splits over
+devices in one process.
 """
 
 from __future__ import annotations
@@ -66,9 +71,10 @@ import numpy as np
 import torch
 
 from yogo_tpu_torch.infer import Predictor, load_model, needs_calibration, quantize_stack
-from yogo_tpu_torch.models.yogo import resolve_device
 from yogo_tpu_torch.ops.postprocess import _cxcywh_to_xyxy_np, format_preds, scatter_candidates
 from yogo_tpu_torch.parallel.distributed import process_shard
+from yogo_tpu_torch.parallel.mesh import device_grid, replicate
+from yogo_tpu_torch.parallel.spatial import RowSplit
 from yogo_tpu_torch.utils.checkpoint import load_any
 from yogo_tpu_torch.utils.weights import state_dict_from_flax
 
@@ -310,6 +316,7 @@ def build_server(
     max_queue: Optional[int] = None,
     max_frames_per_request: Optional[int] = None,
     device=None,
+    devices: Optional[List] = None,
 ) -> ThreadingHTTPServer:
     """Load the model onto `device` (default CUDA), warm it up, and return
     a ready (not yet serving) ThreadingHTTPServer. Callers run
@@ -319,24 +326,22 @@ def build_server(
             "data_parallel/spatial_parallel serving is single-process only "
             "(same contract as yogo infer)"
         )
-    if spatial_parallel > 1:
-        raise NotImplementedError(
-            "--spatial-parallel serving (row-split convs with halo exchange) "
-            "is not ported yet (ROADMAP.md Queue 1 item 15b)"
-        )
-    device = resolve_device(device)
-    if data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        # one visible device serves alone, as the JAX package builds a mesh
-        # only over more than one device
-        raise NotImplementedError(
-            "--data-parallel serving over several cards is not ported yet "
-            "(ROADMAP.md Queue 1 item 15b)"
-        )
+    # the JAX package's mesh selection (yogo_tpu/serve.py:451-478):
+    # spatial-only takes exactly N devices, --data-parallel every visible
+    # one as (n / N) groups of N; one Predictor replica a group
+    grid = device_grid(spatial_parallel, data_parallel, devices=devices, device=device)
+    device = grid[0][0]
+    n_devices = sum(len(g) for g in grid)
+    if batch_size % len(grid):
+        batch_size = -(-batch_size // len(grid)) * len(grid)
+    group_batch = batch_size // len(grid)
     model, stack, cfg = load_model(
         ckpt_path, half=half, device=device, vertical_crop_height=vertical_crop_height,
     )
     img_h, img_w = (int(d) for d in model.img_size)
     crop_hw = (img_h, img_w) if vertical_crop_height else None
+    if spatial_parallel > 1:
+        RowSplit(model, grid[0])  # refuse a height or family that does not split, at start-up
 
     num_classes = model.num_classes
     if class_names is None:
@@ -382,61 +387,76 @@ def build_server(
             raise ValueError("--calibration-images directory is empty")
         calib = [np.stack([ds[i][0] for i in range(n)])]
 
-    def predictor(stack_: torch.nn.Module) -> Predictor:
+    def predictors(stack_: torch.nn.Module) -> List[Predictor]:
+        """One Predictor a data group, each over its row shards; the int8
+        program is calibrated once, on the first device, and copied."""
         qp = quantize_stack(model, stack_, calib) if quantize else None
-        return Predictor(model, stack_, meta=cfg, qp=qp)
+        out = []
+        for group in grid:
+            s_, q_ = replicate(stack_, qp, group[0])
+            out.append(Predictor(model, s_, meta=cfg, qp=q_, devices=group))
+        return out
 
-    # the served Predictor: a hot reload builds a new stack (and int8
-    # program) off to the side and swaps this reference; a dispatch reads it
-    # once, so in-flight batches finish on the one they started with
-    state = {"predictor": predictor(stack)}
+    # the served Predictors (state["predictor"] is the first): a hot reload
+    # builds new ones (stacks, int8 programs) off to the side and swaps this
+    # reference; a dispatch reads it once, so in-flight batches finish on
+    # the ones they started with
+    served = predictors(stack)
+    state = {"predictors": served, "predictor": served[0]}
     # pipeline_depth queued + one being fetched + one the collector holds
     slots: "queue.Queue[_Slot]" = queue.Queue()
     for _ in range(max(1, int(pipeline_depth)) + 2):
         slots.put(_Slot(batch_size, img_chw, k, pred_dim, pin=on_card))
 
     def fwd_dispatch(frames: List[np.ndarray]):
-        """Assemble the frames into a free slot, upload them, and enqueue
-        forward, top-K selection and the copy of the candidates back into
-        the slot; returns (slot, raw head, event recorded after that copy)
-        without waiting for the device."""
+        """Assemble the frames into a free slot, then for each data group
+        upload its rows of the batch and enqueue forward, top-K selection
+        and the copy of the candidates back into the slot; returns (slot,
+        each group's raw head, each group's event recorded after that
+        copy) without waiting for a device."""
         slot = slots.get()
         try:
             for i, frame in enumerate(frames):
                 slot.inp_np[i] = frame
             slot.inp_np[len(frames):] = 0
+            raws, dones = [], []
             with torch.inference_mode():
-                pred = state["predictor"]
-                x = pred.to_device(slot.inp)
-                if normalize:
-                    x = x.float() / 255.0
-                raw = pred.forward_raw(x)
-                rows, idx = pred.candidates(raw, k)
-                slot.rows.copy_(rows, non_blocking=True)
-                slot.idx.copy_(idx, non_blocking=True)
-                done = None
-                if on_card:
-                    done = torch.cuda.Event()
-                    done.record()
-            return slot, raw, done
+                for g, pred in enumerate(state["predictors"]):
+                    rows_g = slice(g * group_batch, (g + 1) * group_batch)
+                    x = pred.to_device(slot.inp[rows_g])
+                    if normalize:
+                        x = x.float() / 255.0
+                    raw = pred.forward_raw(x)
+                    rows, idx = pred.candidates(raw, k)
+                    slot.rows[rows_g].copy_(rows, non_blocking=True)
+                    slot.idx[rows_g].copy_(idx, non_blocking=True)
+                    done = None
+                    if on_card:
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(pred.device))
+                    raws.append(raw)
+                    dones.append(done)
+            return slot, raws, dones
         except BaseException:
             slots.put(slot)
             raise
 
     def fwd_fetch(handles):
-        """Wait for one dispatch's event alone, copy its candidates out of
-        the slot and free the slot; the raw head stays on the device."""
-        slot, raw, done = handles
+        """Wait for one dispatch's events alone, copy its candidates out of
+        the slot and free the slot; the raw heads stay on the devices."""
+        slot, raws, dones = handles
         try:
-            if done is not None:
-                done.synchronize()
+            for done in dones:
+                if done is not None:
+                    done.synchronize()
             rows, idx = slot.rows.numpy().copy(), slot.idx.numpy().copy()
         finally:
             slots.put(slot)
-        return rows, idx, (raw, done)
+        return rows, idx, (raws, dones)
 
-    fallback_stream = torch.cuda.Stream(device) if on_card else None
-    stream_lock = threading.Lock()  # one fallback at a time on that stream
+    # a side stream a data group's first device, for the fallback slices
+    fallback_streams = [torch.cuda.Stream(g[0]) for g in grid] if on_card else None
+    stream_lock = threading.Lock()  # one fallback at a time on those streams
     counters_lock = threading.Lock()
     fallback_count = [0]  # full-slice fetches (candidate set insufficient)
     # POSTs answered and their server-side wall time (body read to response
@@ -445,14 +465,18 @@ def build_server(
     timers = {"requests": 0, "request_s": 0.0, "frames": 0, "format_s": 0.0}
 
     def _slice_full(full, i: int) -> np.ndarray:
-        """Image i's decoded (5+C, Sy, Sx) grid from a dispatch's raw head.
-        On the card it runs on a side stream that waits for that dispatch's
-        event only, so a fallback never waits for later batches."""
-        raw, done = full
-        decode = state["predictor"].decode_slice  # the decode needs no weights
+        """Image i's decoded (5+C, Sy, Sx) grid from a dispatch's raw head of
+        its data group. On the card it runs on a side stream that waits for
+        that group's event of that dispatch only, so a fallback never waits
+        for later batches."""
+        raws, dones = full
+        g, i = divmod(i, group_batch)
+        raw, done = raws[g], dones[g]
+        decode = state["predictors"][g].decode_slice  # the decode needs no weights
         with torch.inference_mode():
-            if fallback_stream is None:
+            if fallback_streams is None:
                 return decode(raw, i).numpy()
+            fallback_stream = fallback_streams[g]
             with stream_lock, torch.cuda.stream(fallback_stream):
                 fallback_stream.wait_event(done)
                 # raw was made on the default stream: keep its memory from
@@ -464,7 +488,8 @@ def build_server(
     # request must not pay cuDNN's algorithm search or the kernel build
     with torch.inference_mode():
         _, _, full_w = fwd_fetch(fwd_dispatch([np.zeros(img_chw, np.uint8)]))
-        _slice_full(full_w, 0)
+        for g in range(len(grid)):
+            _slice_full(full_w, g * group_batch)
         del full_w
 
     # default shed point: pipeline_depth batches in flight plus this many
@@ -516,8 +541,8 @@ def build_server(
         "pipeline_depth": max(1, int(pipeline_depth)),
         "max_queue": int(max_queue),
         "max_frames_per_request": int(max_frames_per_request),
-        "data_parallel_devices": 1,
-        "spatial_parallel": 1,
+        "data_parallel_devices": n_devices if data_parallel and n_devices > 1 else 1,
+        "spatial_parallel": int(spatial_parallel),
         "device": str(device),
         "compute_dtype": str(model.compute_dtype).replace("torch.", ""),
         "defaults": defaults,
@@ -553,10 +578,12 @@ def build_server(
                     new_stack.load_state_dict(state_dict_from_flax(variables2), strict=True)
                 except RuntimeError as e:
                     raise ValueError(f"incompatible reload: weight shapes differ ({e})") from e
-                new_pred = predictor(new_stack)
+                new_preds = predictors(new_stack)
                 if on_card:
-                    torch.cuda.current_stream(device).synchronize()  # upload off the hot path
-                state["predictor"] = new_pred
+                    for p_ in new_preds:  # uploads off the hot path
+                        for d in set(p_.devices):
+                            torch.cuda.current_stream(d).synchronize()
+                state.update(predictors=new_preds, predictor=new_preds[0])
                 info["reloads"] += 1
                 return {"ok": True, "reloads": info["reloads"], "path": str(src)}
             except Exception as e:
@@ -766,7 +793,7 @@ def build_server(
     server.yogo_batcher = batcher
     server.yogo_inflight = inflight
     server.yogo_info = info
-    server.yogo_state = state  # the served Predictor, swapped by a reload
+    server.yogo_state = state  # the served Predictors, swapped by a reload
     server.reload_checkpoint = reload_checkpoint
     return server
 

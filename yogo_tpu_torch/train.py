@@ -329,11 +329,19 @@ class Trainer:
         self.config = config
         if int(config.get("spatial_parallel", 1) or 1) > 1:
             raise NotImplementedError(
-                "--spatial-parallel (row-split convs with halo exchange) is "
-                "not ported yet (ROADMAP.md Queue 1 item 15b)"
+                "--spatial-parallel training (row-split convs with halo "
+                "exchange, autograd through the halos, BN statistics over "
+                "the shards) is not ported yet (ROADMAP.md Queue 1 item 15b-2)"
             )
         self.rank, self.world = process_shard()
         self.device = local_device(device)
+        if self.world == 1 and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            # the port runs one process a card, where the JAX package's
+            # Trainer meshes every local device
+            n = torch.cuda.device_count()
+            print(f"train: one process sees {n} cards and trains on {self.device} alone; "
+                  f"for all of them launch one process a card: torchrun --nproc-per-node {n} "
+                  "-m yogo_tpu_torch train ...")
         config["device"] = device_name(self.device)
         self.epoch = 0
         self.global_step = 0

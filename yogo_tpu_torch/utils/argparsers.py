@@ -2,9 +2,9 @@
 flag-compatible with the reference CLI, reference:
 yogo/utils/argparsers.py:74-489): `train`, `test`, `export`, `infer` and
 `serve` with the same flag names, validating types and defaults as the JAX
-package; `--device` defaults to CUDA. `--spatial-parallel` above 1 (and
-`serve --data-parallel` over several cards) parse, and the commands raise
-naming ROADMAP item 15b.
+package; `--device` defaults to CUDA. `infer` / `serve --spatial-parallel
+N` split each image's rows over N devices; `train` / `test` refuse N > 1
+naming ROADMAP item 15b-2.
 """
 
 from __future__ import annotations
@@ -305,8 +305,8 @@ def train_parser(parser=None):
         "--spatial-parallel", type=positive_int, default=1,
         help=(
             "split each image's rows over N devices (extension of the JAX "
-            "package; not ported yet, ROADMAP item 15b: any N > 1 is "
-            "refused) (default: 1)"
+            "package; training's row split is not ported yet, ROADMAP item "
+            "15b-2: any N > 1 is refused) (default: 1)"
         ),
     )
     parser.add_argument(
@@ -588,11 +588,15 @@ def infer_parser(parser=None):
     parser.add_argument(
         "--data-parallel", action="store_true",
         help="under torchrun, split the images over the ranks (rank 0 prints "
-             "the summed counts); in one process, the single-device path",
+             "the summed counts); in one process that sees one device, the "
+             "single-device path; one process that sees several cards "
+             "raises (launch one process a card with torchrun)",
     )
     parser.add_argument(
         "--spatial-parallel", type=positive_int, default=1,
-        help="row-split inference: not ported yet (ROADMAP.md Queue 1 item 15b), raises above 1",
+        help="split each image's rows over N devices: N cards (each rank's own "
+             "N under torchrun, with --data-parallel), or N handles to the CPU "
+             "with --device cpu; the image height must divide by N (default: 1)",
     )
     parser.add_argument(
         "--use-tqdm", action=boolean_action, default=True,
@@ -713,11 +717,15 @@ def serve_parser(parser=None):
     )
     parser.add_argument(
         "--data-parallel", action="store_true",
-        help="in a process that sees one device, the single-device server; "
-             "over several cards not ported yet (ROADMAP.md Queue 1 item 15b), raises",
+        help="one replica a group of --spatial-parallel devices over every "
+             "visible device, each micro-batch split over them (the batch "
+             "size rounded up to a multiple of the replica count); one "
+             "visible device serves alone",
     )
     parser.add_argument(
         "--spatial-parallel", type=positive_int, default=1,
-        help="row-split serving: not ported yet (ROADMAP.md Queue 1 item 15b), raises above 1",
+        help="split each frame's rows over N devices (exactly N cards, or N "
+             "handles to the CPU with --device cpu); the image height must "
+             "divide by N (default: 1)",
     )
     return parser
