@@ -114,7 +114,19 @@ Phases (any failure exits non-zero):
      --data-parallel` over two replicas equal to the formatter over their
      own forwards; bf16 / int8 forward ms for N = 1, 2, 4 at B=64, halo
      bytes and the copy kernels' device ms;
- 14. one JSON line per kernel ("kernels"), then the last line
+ 14. row-split training and ConvNeXt (spatial_train_phase), N = 2 and 4
+     row shards on the one card: base_model at 772x1032, one f32 step at
+     B=4 split against unsplit (loss, parameters, gradients, BN
+     statistics; no stem launch), bf16 step ms / peak GiB / copy device ms
+     for N = 1, 2, 4 at B=64, Trainer(devices=["cuda:0"] * 2) fine-tuning
+     the golden checkpoint for one epoch on phase 7's frames (its
+     best.ckpt holds the golden counts); ConvNeXt-Small at 772x1032 on
+     phase 10's weights: f32 and bf16 split heads against unsplit, bf16 and
+     int8 forward ms for N = 1, 2, 4 at B=64, 71 N int8 conv launches a
+     batch with every shard's launch equal to the unsplit launch's rows on
+     the same codes, one f32 split train step against unsplit, `serve
+     --spatial-parallel 2` equal to the formatter;
+ 15. one JSON line per kernel ("kernels"), then the last line
      {"ok": true, "device": {...}}.
 All numbers also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 """
@@ -491,7 +503,7 @@ def busy_share(trace: dict, span: str):
 
 
 def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_version=None,
-              golden_ckpt=CKPT, probe=True):
+              golden_ckpt=CKPT, probe=True, data_dir=None):
     """Phase 7: `train`, `train --resume`, `test` with both metrics engines,
     a decode-path epoch and `infer --count`, each through
     yogo_tpu_torch.__main__.main(argv) as a user would call it. device_arg
@@ -499,8 +511,10 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
     small size. The stem's launch counts are set to 0 at the start and read
     after every command: `train` and `test` must launch it no time (their
     forward takes the plain stem, as in the JAX package), `infer` at least
-    once. Returns (numbers for the report, stem launches by command). Every
-    check raises."""
+    once. The dataset is written under `data_dir` when given (phase 14
+    trains on it again), else in the phase's own directory. Returns
+    (numbers for the report, stem launches by command). Every check
+    raises."""
     import pickle
 
     from yogo_tpu_torch.__main__ import main as cli
@@ -575,7 +589,8 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
     try:
         os.chdir(tmp)
         # ------------------------------------------------------------- data
-        defn, secs = wall(lambda: write_dataset(tmp / "data", n_frames, hw))
+        data = Path(data_dir or tmp / "data")
+        defn, secs = wall(lambda: write_dataset(data, n_frames, hw))
         n_train, n_val, n_test = (int(round(f * n_frames)) for f in (0.6, 0.2, 0.2))
         steps_per_epoch = -(-n_train // batch)
         out["dataset"] = {"frames": n_frames, "hw": list(hw), "write_s": secs,
@@ -859,8 +874,8 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
         test_dir.mkdir()
         n_labels = 0
         for i in range(8):
-            os.link(tmp / "data" / "images" / f"frame_{i:04d}.png", test_dir / f"frame_{i:04d}.png")
-            n_labels += len((tmp / "data" / "labels" / f"frame_{i:04d}.txt").read_text().splitlines())
+            os.link(data / "images" / f"frame_{i:04d}.png", test_dir / f"frame_{i:04d}.png")
+            n_labels += len((data / "labels" / f"frame_{i:04d}.txt").read_text().splitlines())
         out["infer_count"] = {"frames": 8, "labels": n_labels}
         ckpts = {"best.ckpt": run / "best.ckpt"}
         if golden_ckpt is not None and tuple(hw) == HW:
@@ -2765,6 +2780,426 @@ def spatial_phase(device_arg, imgs4, golden, smi, *, ckpt=CKPT, batch=TIMING_BAT
     return out, launches
 
 
+# one step's update of a parameter whose gradient is zero in exact arithmetic
+# (a conv bias in front of a BN: base_model's conv5) is AdamW's lr-sized
+# answer to float noise, of the noise's sign
+SPATIAL_TRAIN_ZERO_GRAD = ("conv5.bias",)
+# the split's BN running statistics against the unsplit step's. (On the
+# CPU, whose batch_norm is 9e-5 off the float64 variance at B=4 772x1032
+# where the split's float64 sums are 5e-8 off, a rehearsal sets 1e-3.)
+SPATIAL_TRAIN_BN_RTOL = 1e-5
+# the bf16 ConvNeXt head split against unsplit, relative to the head's
+# largest value: the same bf16 ops on the same rows, summed in other orders
+# where cuDNN picks another algorithm for another height, through 36 blocks
+CONVNEXT_SPLIT_BF16_REL = 3e-2
+
+
+def spatial_train_phase(device_arg, imgs4, boxes4, golden, smi, *, ckpt=CKPT, data_defn=None,
+                        ns=SPATIAL_NS, batch=TIMING_BATCH, small=4, timing=True, convnext_hw=HW,
+                        serve_n=2):
+    """Phase 14: row-split training and ConvNeXt-Small's row split, the N
+    row shards on the one card (devices=[dev] * N: the path, not scaling).
+    device_arg None runs on the card; "cpu" rehearses the control flow
+    (convnext_hw small). In order:
+      1. base_model at `ckpt`'s size from a seeded init, one f32 step (TF32
+         off) at B=`small` with flips and dropout on, split N in `ns`
+         against the unsplit step: loss rtol 1e-5, every parameter rtol
+         1e-4 / atol 1e-6 (an element whose gradient changes sign between
+         the two, AdamW's lr-sized answer to float noise, and
+         SPATIAL_TRAIN_ZERO_GRAD held to 2 lr instead, and counted), every
+         gradient within 1e-4 of the float64 step's, relative to its
+         parameter's largest, or within 4 times the unsplit gradient's
+         own error where float32 cancels (grad_gate), the BN running
+         statistics rtol SPATIAL_TRAIN_BN_RTOL; the stem launched no time;
+      2. (timing) bf16 steps at B=`batch` for N = 1 and `ns`: step ms
+         (median of 10, CUDA events), peak GiB, the step's device ms by
+         kernel kind (the window copies forward and backward);
+      3. Trainer(devices=[dev] * 2, spatial_parallel=2) fine-tuning the
+         golden checkpoint for one epoch on `data_defn` (phase 7's 320
+         frames; BN frozen, as a fine-tune is): its best.ckpt reloaded by
+         the float Predictor holds the golden counts (+-1 a frame, f32);
+      4. ConvNeXt-Small at `convnext_hw` on phase 10's seeded weights
+         (perturbed_convnext): the f32 split head at B=`small` against the
+         unsplit (rtol = atol = 1e-4, TF32 off); bf16 forward_raw for N =
+         1 and `ns` at B=`batch`, each split head against the unsplit within
+         CONVNEXT_SPLIT_BF16_REL of its largest value, ms and device ms by
+         kind; int8 (calibrated on the golden frames, unsplit): 71 N
+         int8_conv launches a batch, each shard's launch at B=`small` equal
+         to the unsplit launch's rows on the same codes at all 71 sites, the
+         codes against the unsplit program's (counted), the head within
+         phase 10's int8 noise gate of the f32 head (0.1 of its largest
+         value), forward ms at B=`batch`; one
+         f32 split train step at B=`small` against the unsplit (loss rtol
+         1e-5, every gradient as in 1.);
+         `serve --spatial-parallel serve_n` bf16 at micro-batch 4 equal to
+         the host formatter over the server's own forward.
+    Returns (numbers for the report, launches by path). Every check raises."""
+    import copy
+    import threading
+
+    from yogo_tpu_torch.infer import Predictor
+    from yogo_tpu_torch.models.yogo import YOGO, no_tf32
+    from yogo_tpu_torch.ops import int8_conv as ic
+    from yogo_tpu_torch.ops import quant_convnext as qc
+    from yogo_tpu_torch.ops.grid import encode_label_grid_np
+    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
+    from yogo_tpu_torch.parallel import spatial
+    from yogo_tpu_torch.serve import build_server, format_detections
+    from yogo_tpu_torch.serve_client import ServeClient
+    from yogo_tpu_torch.train import Trainer, TrainState, make_optimizer, make_train_step
+    from yogo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
+    from yogo_tpu_torch.utils.weights import flax_from_state_dict
+
+    dev = torch.device("cuda", 0) if device_arg is None else torch.device(device_arg)
+    on_card = dev.type == "cuda"
+    n_img = len(imgs4)
+    want_per_image = [len(golden[f"dets_{i}"]) for i in range(n_img)]
+    out, launches = {"n": list(ns), "card": smi}, {}
+    t_phase = time.time()
+    lr = 1e-3
+    loss_kw = dict(no_obj_weight=df.NO_OBJ_WEIGHT, iou_weight=df.IOU_WEIGHT,
+                   classify_weight=df.CLASSIFY_WEIGHT, label_smoothing=df.LABEL_SMOOTHING)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+
+    def tiled(x, n):
+        return np.concatenate([x] * -(-n // len(x)))[:n]
+
+    def grad_gate(tag, got, want, ref):
+        """Each parameter's split float32 gradient `got` against the float64
+        step's `ref`, relative to its largest element: within 1e-4, or
+        within 4 times the unsplit float32 gradient's (`want`) own error
+        (a gradient that is a residue of cancelling float32 sums, as block
+        0's over raw frames). Returns the worst."""
+        worst = (-1.0, None, None)
+        for k, r in ref.items():
+            if k in SPATIAL_TRAIN_ZERO_GRAD:
+                continue
+            scale = r.abs().max().clamp(min=1e-30)
+            e_split = float((got[k].double() - r).abs().max() / scale)
+            e_unsplit = float((want[k].double() - r).abs().max() / scale)
+            if e_split > max(1e-4, 4 * e_unsplit):
+                raise AssertionError(f"{tag}: gradient of {k} off the float64 step's by {e_split} of its max "
+                                     f"(the unsplit step's by {e_unsplit})")
+            worst = max(worst, (e_split, k, e_unsplit))
+        return {"grad_max_rel_err_vs_float64": worst[0], "grad_worst": worst[1],
+                "unsplit_grad_rel_err_there": worst[2]}
+
+    def steps_of(model, base, n, x, labels, *, steps=1, remat="none", augment=True):
+        """`steps` steps of make_train_step from a copy of `base`, rows over
+        n handles to `dev` (unsplit at 1): (losses, state, the gradients of
+        the last step before the optimizer's clamp, stem launches)."""
+        stack = copy.deepcopy(base)
+        opt, sched, _ = make_optimizer(stack.parameters(), lr, df.WEIGHT_DECAY, df.DECAY_FACTOR, 100)
+        grads = {}
+
+        def grab(opt, args, kwargs):
+            grads.update({k: p.grad.detach().clone() for k, p in stack.named_parameters()})
+
+        opt.register_step_pre_hook(grab)
+        state = TrainState(stack, opt, sched)
+        rows = spatial.RowSplit(model, [dev] * n) if n > 1 else None
+        step = make_train_step(model, loss_kw, augment=augment, remat=remat, rows=rows)
+        mask = torch.ones(len(x), device=dev)
+        STEM_LAUNCHES.clear()
+        losses = [float(step(state, x, labels, mask, torch.Generator().manual_seed(11 + k))[1])
+                  for k in range(steps)]
+        sync()
+        sd = {k: v.detach().clone() for k, v in stack.state_dict().items()}
+        return losses, sd, grads, sum(STEM_LAUNCHES.values()), (state, step, rows)
+
+    # -------------------------------- 1. base_model: the f32 gate at B=small
+    gold_model, _, _ = load_checkpoint(ckpt)
+    sx, sy = gold_model.grid
+    grids4 = np.stack([encode_label_grid_np(b, sx, sy) for b in boxes4])
+    f32 = dataclasses.replace(gold_model, compute_dtype=torch.float32)
+    base = f32.init(torch.Generator().manual_seed(5), device=dev)
+    x4 = torch.from_numpy(tiled(imgs4, small)).to(dev)
+    lab4 = torch.from_numpy(tiled(grids4, small)).to(dev)
+    l1, sd1, g1, _, _ = steps_of(f32, base, 1, x4, lab4)
+    g64 = steps_of(dataclasses.replace(f32, compute_dtype=torch.float64), copy.deepcopy(base).double(), 1,
+                   x4, lab4)[2]
+    out["f32_gate"] = {"batch": small, "loss_unsplit": l1[0]}
+    launches["train_spatial_f32"] = {}
+    for n in ns:
+        ln, sdn, gn, stems, _ = steps_of(f32, base, n, x4, lab4)
+        launches["train_spatial_f32"][n] = stems
+        if not np.isclose(ln[0], l1[0], rtol=1e-5):
+            raise AssertionError(f"split training N={n}: loss {ln[0]} vs unsplit {l1[0]}")
+        grad_rep = grad_gate(f"split training N={n}", gn, g1, g64)
+        flipped = 0
+        for k, w in sd1.items():
+            if not w.is_floating_point():
+                continue
+            if k.endswith(("running_mean", "running_var")):
+                if not torch.allclose(sdn[k], w, rtol=SPATIAL_TRAIN_BN_RTOL, atol=1e-6):
+                    raise AssertionError(f"split training N={n}: BN statistic {k} differs by "
+                                         f"{float(((sdn[k] - w) / w).abs().max())} relative")
+                continue
+            bad = ~torch.isclose(sdn[k], w, rtol=1e-4, atol=1e-6)
+            if k in SPATIAL_TRAIN_ZERO_GRAD:
+                excused = torch.ones_like(bad)
+            else:
+                excused = torch.sign(gn[k]) != torch.sign(g1[k])
+            flipped += int((bad & excused).sum())
+            if bool((bad & ~excused).any()) or float((sdn[k] - w).abs().max()) > 2 * lr + 1e-6:
+                raise AssertionError(f"split training N={n}: parameter {k} differs by "
+                                     f"{float((sdn[k] - w).abs().max())}")
+        if on_card and stems:
+            raise AssertionError(f"split training N={n} launched the stem kernel {stems} times")
+        out["f32_gate"][f"n{n}"] = {"loss": ln[0], **grad_rep, "sign_flipped_elements": flipped}
+    log(f"spatial training f32 gate at B={small} ({smi}): " + json.dumps(out["f32_gate"]))
+    del base, sd1, g1, g64
+
+    # --------------------------------------- 2. bf16 step timing at B=batch
+    bf16 = dataclasses.replace(gold_model, compute_dtype=torch.bfloat16)
+    if timing and on_card:
+        base = bf16.init(torch.Generator().manual_seed(5), device=dev)
+        xb = torch.from_numpy(tiled(imgs4, batch)).to(dev)
+        labb = torch.from_numpy(tiled(grids4, batch)).to(dev)
+        t = {"batch": batch, "step_ms": {}, "peak_gib": {}, "device_ms_by_kind": {}, "halo_bytes": {}}
+        launches["train_spatial_bf16"] = {}
+        for n in (1, *ns):
+            reset_peak()
+            stack = copy.deepcopy(base)
+            opt, sched, _ = make_optimizer(stack.parameters(), lr, df.WEIGHT_DECAY, df.DECAY_FACTOR, 1000)
+            state = TrainState(stack, opt, sched)
+            rows = spatial.RowSplit(bf16, [dev] * n) if n > 1 else None
+            step = make_train_step(bf16, loss_kw, rows=rows)
+            mask = torch.ones(batch, device=dev)
+            gen = torch.Generator().manual_seed(3)
+            STEM_LAUNCHES.clear()
+
+            def one():
+                return step(state, xb, labb, mask, gen)[1]
+
+            t["step_ms"][n] = cuda_ms(one, reps=10, per_rep=1, warmup=2)
+            t["peak_gib"][n] = peak_gib()
+            t["device_ms_by_kind"][n] = device_ms_by_kind(one)
+            sync()
+            launches["train_spatial_bf16"][n] = sum(STEM_LAUNCHES.values())
+            if launches["train_spatial_bf16"][n]:
+                raise AssertionError(f"bf16 split training N={n} launched the stem kernel")
+            if rows is not None:
+                t["halo_bytes"][n] = rows.halo_bytes
+            del stack, opt, sched, state, step, rows
+        out["bf16_timing"] = t
+        log(f"spatial training bf16 B={batch} ({smi}): " + json.dumps(t))
+        del base, xb, labb
+
+    # ---------------------------------------- 3. the Trainer, one epoch
+    if data_defn is not None:
+        tmp_ctx = tempfile.TemporaryDirectory()
+        run_dir = Path(tmp_ctx.name) / "run"
+        cfg = {
+            "learning_rate": 1e-5, "decay_factor": df.DECAY_FACTOR, "weight_decay": df.WEIGHT_DECAY,
+            "label_smoothing": df.LABEL_SMOOTHING, "iou_weight": df.IOU_WEIGHT,
+            "no_obj_weight": df.NO_OBJ_WEIGHT, "classify_weight": df.CLASSIFY_WEIGHT,
+            "epochs": 1, "batch_size": batch if on_card else small,
+            "anchor_w": gold_model.anchor_w, "anchor_h": gold_model.anchor_h, "model": None,
+            "half": True, "rgb": False, "image_hw": tuple(gold_model.img_size),
+            "pretrained_path": str(ckpt), "normalize_images": False, "dataset_split_override": None,
+            "dataset_descriptor_file": str(data_defn), "name": "spatial", "note": None, "tags": None,
+            "wandb_entity": None, "wandb_project": None, "use_wandb": False,
+            "model_save_dir": str(run_dir), "spatial_parallel": 2, "fast_eval": True,
+        }
+        t0 = time.time()
+        trainer = Trainer(cfg, devices=[dev] * 2)
+        trainer.init()
+        start = trainer.global_step  # the checkpoint's
+        STEM_LAUNCHES.clear()
+        trainer.train()
+        sync()
+        launches["trainer_spatial_2"] = sum(STEM_LAUNCHES.values())
+        steps = trainer.global_step - start
+        del trainer
+        pred = Predictor.from_checkpoint(run_dir / "best.ckpt", device=dev)
+        raw = pred.forward_raw(imgs4)
+        per = [int(pred.count(raw, torch.arange(n_img) == i).sum()) for i in range(n_img)]
+        if any(abs(a - b) > 1 for a, b in zip(per, want_per_image)):
+            raise AssertionError(f"Trainer(spatial_parallel=2) best.ckpt: counts {per} vs golden {want_per_image}")
+        out["trainer"] = {"devices": [str(dev)] * 2, "steps": steps, "seconds": time.time() - t0,
+                          "per_image": per, "golden": want_per_image,
+                          "stem_launches_train_and_test": launches["trainer_spatial_2"]}
+        log("spatial Trainer, one fine-tune epoch, best.ckpt counted f32: " + json.dumps(out["trainer"]))
+        del pred, raw
+        tmp_ctx.cleanup()
+
+    # ---------------------------------------------------- 4. ConvNeXt-Small
+    classes = ["cell", "parasite"]
+    cmodel = YOGO.create(convnext_hw, 0.0425, 0.0555, len(classes), model_version="convnext_small")
+    cbf16 = cmodel.with_compute_dtype(torch.bfloat16)
+    net = perturbed_convnext(cmodel, dev)
+    cx4 = torch.from_numpy(tiled(imgs4, small)[..., :convnext_hw[0], :convnext_hw[1]].copy()).to(dev)
+    cnx = {}
+    # f32 heads at B=small, TF32 off (YOGO.apply / RowSplit hold no_tf32)
+    head1 = Predictor(cmodel, net).forward_raw(cx4)
+    cnx["f32"] = {}
+    for n in ns:
+        head = Predictor(cmodel, net, devices=[dev] * n).forward_raw(cx4)
+        err = float((head - head1).abs().max())
+        if not torch.allclose(head, head1, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"convnext f32 split N={n}: head off by {err}")
+        cnx["f32"][n] = {"max_abs_err": err, "max_abs_head": float(head1.abs().max())}
+    log(f"spatial convnext f32 heads at B={small}: " + json.dumps(cnx["f32"]))
+
+    # bf16 heads and time at B=batch
+    cbig = torch.from_numpy(tiled(imgs4, batch if on_card else small)[..., :convnext_hw[0], :convnext_hw[1]]
+                            .copy()).to(dev)
+    p1 = Predictor(cbf16, net)
+    ref = p1.forward_raw(cbig).float()
+    cnx["bf16"] = {"batch": len(cbig), "ms": {}, "device_ms_by_kind": {}, "head_rel_err": {}, "halo_bytes": {}}
+    for n in (1, *ns):
+        pn = p1 if n == 1 else Predictor(cbf16, net, devices=[dev] * n)
+        STEM_LAUNCHES.clear()
+        head = pn.forward_raw(cbig).float()
+        rel = float((head - ref).abs().max() / ref.abs().max())
+        if rel > CONVNEXT_SPLIT_BF16_REL or not torch.isfinite(head).all():
+            raise AssertionError(f"convnext bf16 split N={n}: head off by {rel} of its max")
+        if sum(STEM_LAUNCHES.values()):
+            raise AssertionError("convnext launched the stem kernel")
+        cnx["bf16"]["head_rel_err"][n] = rel
+        if n > 1:
+            cnx["bf16"]["halo_bytes"][n] = pn.rows.halo_bytes
+        if timing and on_card:
+            cnx["bf16"]["ms"][n] = cuda_ms(lambda: pn.forward_raw(cbig), 5, per_rep=2, warmup=1)
+            cnx["bf16"]["device_ms_by_kind"][n] = device_ms_by_kind(lambda: pn.forward_raw(cbig), reps=2)
+        del pn, head
+    del ref
+    log(f"spatial convnext bf16 B={len(cbig)} ({smi}): " + json.dumps(cnx["bf16"]))
+
+    # int8: calibrated once on the golden frames, unsplit
+    qp = qc.quantize_convnext(cmodel, net, [cx4[:min(small, n_img)]], device=dev)
+    keys = [k for k, _ in qc.quant_sites()]
+    rec1 = []
+    qraw1 = qc.quantized_convnext_forward(cmodel, qp, cx4, decode=False, record=rec1)
+    seen = {}
+    site_conv = qc.QuantLayers.site_conv
+
+    def spy(self, key, h, stride):
+        y = site_conv(self, key, h, stride)
+        if key in self.int8:
+            seen.setdefault(key, []).append(y)
+        return y
+
+    cnx["int8"] = {"launches_by_n": {}, "codes_equal_sites": {}, "head_max_abs_dev": {}, "ms": {}}
+    checked = 0
+    launches["convnext_int8_spatial"] = {}
+    for n in ns:
+        pq = Predictor(cmodel, net, qp=qp, devices=[dev] * n)
+        rec = []
+        seen.clear()
+        qc.QuantLayers.site_conv = spy
+        try:
+            sync()
+            ic.LAUNCHES.clear()
+            qraw = pq.rows.forward_raw(pq.shard_weights, cx4, record=rec)
+            sync()
+            got = ic.LAUNCHES["int8_conv"]
+        finally:
+            qc.QuantLayers.site_conv = site_conv
+        launches["convnext_int8_spatial"][n] = got
+        if on_card and got != len(keys) * n:
+            raise AssertionError(f"convnext int8 split N={n}: {got} int8_conv launches, not {len(keys) * n}")
+        for key, codes in zip(keys, rec):
+            blk = qp["int8"][key]
+            whole = ic.int8_conv(codes.contiguous(), blk["w8"], blk["deq"], blk["b"], cin=codes.shape[-1],
+                                 stride=2 if key.startswith("down") else 1, padding=0, act=None)
+            if len(seen[key]) != n or not torch.equal(torch.cat(seen[key], 1), whole):
+                raise AssertionError(f"convnext int8 split N={n}: a shard's launch at {key} differs from "
+                                     "the unsplit launch's rows on the same codes")
+            checked += n
+        # the codes against the unsplit program's: cuDNN and cuBLAS may sum a
+        # shard's float convs and Dense layers in another order than the
+        # whole image's (another height, another algorithm), and a code that
+        # sat on a rounding boundary moves by one; the head is then held
+        # to phase 10's int8 noise gate against the f32 head
+        shares = [float((a == b).float().mean()) for a, b in zip(rec, rec1)]
+        cnx["int8"]["codes_equal_sites"][n] = sum(s == 1.0 for s in shares)
+        cnx["int8"].setdefault("codes_equal_share_by_site", {})[n] = shares
+        cnx["int8"]["head_max_abs_dev"][n] = float((qraw - qraw1).abs().max())
+        noise = float((qraw - head1).abs().max())
+        cnx["int8"].setdefault("vs_f32_head", {})[n] = noise
+        if not noise < 0.1 * float(head1.abs().max()):
+            raise AssertionError(f"convnext int8 split N={n}: head off the f32 head by {noise}")
+        cnx["int8"]["launches_by_n"][n] = got
+        del pq, rec
+    cnx["int8"]["shard_launches_checked"] = checked
+    cnx["int8"]["unsplit_vs_f32_head"] = float((qraw1 - head1).abs().max())
+    del rec1, seen
+    if timing and on_card:
+        for n in (1, *ns):
+            if n == 1:
+                def fwd():
+                    return qc.quantized_convnext_forward(cmodel, qp, cbig, decode=False)
+            else:
+                pq = Predictor(cmodel, net, qp=qp, devices=[dev] * n)
+
+                def fwd(pq=pq):
+                    return pq.rows.forward_raw(pq.shard_weights, cbig)
+            cnx["int8"]["ms"][n] = cuda_ms(fwd, 5, per_rep=2, warmup=1)
+    log(f"spatial convnext int8 ({smi}): " + json.dumps(cnx["int8"]))
+
+    # one f32 split train step at B=small against the unsplit
+    csx, csy = cmodel.grid
+    clab = torch.from_numpy(np.stack([encode_label_grid_np(boxes4[k % n_img], csx, csy)
+                                      for k in range(small)])).to(dev)
+    cl1, _, cg1, _, _ = steps_of(cmodel, net, 1, cx4, clab)
+    cg64 = steps_of(cmodel.with_compute_dtype(torch.float64), copy.deepcopy(net).double(), 1, cx4, clab)[2]
+    cnx["train"] = {"loss_unsplit": cl1[0]}
+    for n in ns:
+        cln, _, cgn, _, _ = steps_of(cmodel, net, n, cx4, clab, remat="blocks")
+        if not np.isclose(cln[0], cl1[0], rtol=1e-5):
+            raise AssertionError(f"convnext split train N={n}: loss {cln[0]} vs {cl1[0]}")
+        cnx["train"][n] = {"loss": cln[0], **grad_gate(f"convnext split train N={n}", cgn, cg1, cg64)}
+    del cg1, cg64
+    log(f"spatial convnext f32 train step B={small} remat=blocks: " + json.dumps(cnx["train"]))
+
+    # serve --spatial-parallel serve_n, bf16, micro-batch 4
+    tmp_ctx = tempfile.TemporaryDirectory()
+    cckpt = Path(tmp_ctx.name) / "convnext.ckpt"
+    save_checkpoint(cckpt, cmodel, flax_from_state_dict(net.state_dict()), classes=classes)
+    del net
+    thr = {"obj_thresh": 0.5, "iou_thresh": 0.5, "min_class_confidence_threshold": 0.0}
+    frames = np.ascontiguousarray(imgs4[..., :convnext_hw[0], :convnext_hw[1]])
+    srv = build_server(cckpt, port=0, half=True, batch_size=n_img, linger_ms=5.0,
+                       spatial_parallel=serve_n, devices=[dev] * serve_n)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        (p,) = srv.yogo_state["predictors"]
+        want = [format_detections(d, classes, **thr) for d in p.forward(frames).cpu().numpy()]
+        with ServeClient("127.0.0.1", srv.server_address[1], timeout=300) as c:
+            got = c.predict_many(frames)
+        info = srv.yogo_info
+    finally:
+        srv.shutdown()
+        srv.yogo_batcher.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        tmp_ctx.cleanup()
+    if got != want or info["spatial_parallel"] != serve_n:
+        raise AssertionError(f"convnext serve --spatial-parallel {serve_n}: answers differ from the "
+                             "host formatter over the server's forward")
+    cnx["serve"] = {"spatial_parallel": serve_n, "per_image": [sum(r["counts"].values()) for r in got],
+                    "bit_equal": True}
+    log("spatial convnext serve: " + json.dumps(cnx["serve"]))
+    out["convnext"] = cnx
+    out["seconds"] = time.time() - t_phase
+    return out, launches
+
+
 def main() -> int:
     # ------------------------------------------------------------ 1. device
     if not torch.cuda.is_available():
@@ -2980,7 +3415,9 @@ def main() -> int:
 
     # ------------------------------------- 7. train / test / infer, by CLI
     torch.cuda.empty_cache()
-    report["cli"], cli_launches = cli_phase(None)
+    shared = tempfile.TemporaryDirectory()  # phase 7's dataset, trained on again in phase 14
+    data_dir = Path(shared.name) / "data"
+    report["cli"], cli_launches = cli_phase(None, data_dir=data_dir)
     cli_stem = {f"stem_{layout}": {c: n.get(f"stem_{layout}", 0) for c, n in cli_launches.items()}
                 for layout in ("nhwc", "nchw")}
     if cli_stem["stem_nhwc"]["infer best.ckpt"] < 1:
@@ -3029,7 +3466,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["spatial"], sp_launches = spatial_phase(None, imgs4, golden, smi)
 
-    # ----------------------------------------------------------- 14. report
+    # --------------------------------------- 14. row-split training, ConvNeXt
+    torch.cuda.empty_cache()
+    try:
+        report["spatial_train"], spt_launches = spatial_train_phase(
+            None, imgs4, boxes4, golden, smi, data_defn=data_dir / "defn.yml")
+    finally:
+        shared.cleanup()
+
+    # ----------------------------------------------------------- 15. report
     rows = []
     for layout, line in (("nhwc", 53), ("nchw", 210)):
         rows.append({
@@ -3053,6 +3498,13 @@ def main() -> int:
                 for n in SPATIAL_NS if f"infer_bf16_{layout}_n{n}" in sp_launches},
             "launches_serve_multi_device_one_dispatch": {
                 k: v.get(f"stem_{layout}", 0) for k, v in sp_launches.items() if k.startswith("serve")},
+            # phase 14: training steps with N row shards (f32 gate, bf16
+            # timing) and the spatial Trainer's epoch; the kernel has no
+            # backward, so none is expected
+            "launches_train_spatial_by_n": {
+                "f32": spt_launches["train_spatial_f32"],
+                "bf16": spt_launches.get("train_spatial_bf16", {}),
+                "trainer_n2_epoch_and_test": spt_launches["trainer_spatial_2"]},
             "max_abs_err": max_err[layout],
             "ms": timing[layout]["ms"],
             "plain_ms": timing[layout]["plain_ms"],
@@ -3083,6 +3535,12 @@ def main() -> int:
         "launches_infer_quantize_spatial_by_n": {
             n: sp_launches[f"infer_quantize_n{n}"].get("int8_conv", 0) for n in SPATIAL_NS},
         "spatial_shard_launches_checked": report["spatial"]["int8_conv_shards_bit_equal"][
+            "shard_launches_checked"],
+        # phase 14: ConvNeXt-Small's int8 program split over N shards at
+        # B=4, 71 N a batch; every shard launch checked against the unsplit
+        # launch on the same codes
+        "launches_convnext_infer_quantize_spatial_by_n": spt_launches["convnext_int8_spatial"],
+        "spatial_convnext_shard_launches_checked": report["spatial_train"]["convnext"]["int8"][
             "shard_launches_checked"],
         "max_abs_err": report["int8"]["max_abs_err"],
         # the three quantized blocks of one B=64 forward, summed; by block beside

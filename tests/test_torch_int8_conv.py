@@ -202,6 +202,17 @@ CUDA_CASES = CASES + [
     (1, 17, 23, 64, 96, 3, 2),
     (1, 17, 23, 256, 256, 1, 1),
     (1, 17, 23, 192, 384, 2, 2),
+    # ConvNeXt-Small's int8 sites on the row shards of a 772x1032 batch of
+    # 4 (parallel/spatial.py): stage 0's 97 / 49-row shards (N = 2 / 4, odd
+    # M), stage 1's and 3's at N = 4, and the downsamples' 2x2 stride-2
+    # windows of 24 rows over an odd W of 129 and of 12 rows
+    (4, 97, 258, 384, 96, 1, 1),
+    (4, 49, 258, 384, 96, 1, 1),
+    (4, 24, 129, 192, 768, 1, 1),
+    (4, 24, 129, 768, 192, 1, 1),
+    (4, 6, 32, 768, 3072, 1, 1),
+    (4, 24, 129, 192, 384, 2, 2),
+    (4, 12, 64, 384, 768, 2, 2),
 ]
 
 

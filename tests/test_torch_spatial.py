@@ -146,9 +146,33 @@ def test_plan_at_772_and_what_it_refuses():
         spatial.plan_rows(blocks, 772, 3)
     with pytest.raises(ValueError, match="fewer than"):
         spatial.plan_rows(blocks, 16, 4)  # the head grid has 2 rows
+    # ConvNeXt-Small plans (its heights at 772: 193 -> 96 -> 48 -> 24, the
+    # head 96) and runs: the f32 head of a small split at 1e-5
     cnx = YOGO.create((64, 96), 0.1, 0.1, 2, model_version="convnext_small")
-    with pytest.raises(NotImplementedError, match="15b-4"):
-        spatial.RowSplit(cnx, ["cpu"] * 2)
+    heights = [lr.h_out for lr in spatial.plan_rows(spatial.convnext_layers(), 772, 4)]
+    assert [heights[i] for i in (0, 4, 8, 36, 40, 41)] == [193, 96, 48, 24, 24, 96]
+    torch.manual_seed(0)
+    net = cnx.module("cpu")
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 1, 64, 96), np.uint8))
+    raw = Predictor(cnx, net, devices=["cpu"] * 2).forward_raw(x)
+    torch.testing.assert_close(raw, Predictor(cnx, net).forward_raw(x), rtol=1e-5, atol=1e-6)
+
+
+def test_windows_keep_their_owners_memory_order():
+    """A shard's window is made dense in its owners' memory order, so its
+    ops see the layout the unsplit forward's see (cuDNN picks algorithms,
+    and so roundings, by layout); an axis of size 1 keeps its place,
+    whatever stride it carries (a frame's channel axis may carry 0)."""
+    for like, want in (
+        (torch.zeros(4, 1, 10, 12).as_strided((4, 1, 10, 12), (120, 0, 12, 1)), (60, 60, 12, 1)),
+        (torch.zeros(4, 1, 10, 12), (60, 60, 12, 1)),
+        (torch.zeros(4, 8, 10, 12).contiguous(memory_format=torch.channels_last), (480, 1, 96, 8)),
+        (torch.zeros(4, 8, 10, 12).permute(0, 2, 3, 1), (480, 12, 1, 60)),  # NHWC view of NCHW
+        (torch.zeros(4, 10, 12, 32, dtype=torch.int8), (1920, 384, 32, 1)),  # NHWC codes
+    ):
+        rows = 2 if like.shape[1] in (1, 8) else 1
+        win = spatial._dense_like(like.narrow(rows, 2, 5), like)
+        assert win.stride() == want and torch.equal(win, like.narrow(rows, 2, 5))
 
 
 # ----------------------------------------------------------- stem per shard

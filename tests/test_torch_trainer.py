@@ -161,8 +161,14 @@ def test_trainer_end_to_end_accumulate(tmp_path):
 
 def test_unported_options_raise_and_the_default_device_is_the_card(tmp_path):
     cfg = base_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 15b-2"):
-        Trainer(dict(cfg, spatial_parallel=2), device="cpu")
+    # --spatial-parallel runs: two row shards on the CPU, one optimizer
+    # step of the split, and a height that does not divide is refused
+    t = cpu_trainer(dict(cfg, spatial_parallel=2, epochs=1, model_save_dir=str(tmp_path / "sp")))
+    assert t.devices == [torch.device("cpu")] * 2 and t.rows is not None
+    t.train()
+    assert t.global_step == len(t.train_dataloader) > 0 and (tmp_path / "sp" / "latest.ckpt").exists()
+    with pytest.raises(ValueError, match="divisible"):
+        Trainer(dict(cfg, spatial_parallel=3), device="cpu")
     # --fsdp runs; in one process there is nothing to shard
     t = cpu_trainer(dict(cfg, fsdp=True))
     assert t._fsdp is False and t.world == 1

@@ -12,7 +12,7 @@ with RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT in the environment
 (or .npz) and prints "WORKER <mode> <rank> ok" last.
 
 Modes: bn (global BatchNorm), step (make_train_step, replicated and
-FSDP), metrics (DeviceMetrics), trainer (Trainer.train, phases interrupt /
+FSDP, unsplit or with each rank's rows split over N row shards), metrics (DeviceMetrics), trainer (Trainer.train, phases interrupt /
 resume / fsdp / replicated), infer (predict(data_parallel=True), float and
 int8), raises (what multi-process runs refuse).
 """
@@ -153,11 +153,13 @@ def rank_rows(arr, rank, world, accumulate=1):
     return arr[tuple(idx)]
 
 
-def run_steps(model, stack, batches, *, augment, accumulate, fsdp=False, seed=0):
-    """Two (or len(batches)) steps of make_train_step on this rank's rows;
-    returns (losses, components, full state dict as numpy)."""
+def run_steps(model, stack, batches, *, augment, accumulate, fsdp=False, seed=0, spatial=1):
+    """Two (or len(batches)) steps of make_train_step on this rank's rows,
+    each image's rows over `spatial` row shards on the stack's device when
+    spatial > 1; returns (losses, components, full state dict as numpy)."""
     from yogo_tpu_torch.parallel.distributed import process_shard
     from yogo_tpu_torch.parallel.mesh import full_state_dict, fully_shard_stack
+    from yogo_tpu_torch.parallel.spatial import RowSplit
     from yogo_tpu_torch.train import TrainState, make_optimizer, make_train_step, step_seed
 
     rank, world = process_shard()
@@ -165,7 +167,8 @@ def run_steps(model, stack, batches, *, augment, accumulate, fsdp=False, seed=0)
         fully_shard_stack(stack)
     opt, sched, _ = make_optimizer(stack.parameters(), 1e-3, 5e-2, 10.0, 50)
     state = TrainState(stack, opt, sched)
-    step = make_train_step(model, LOSS_KW, augment=augment, accumulate=accumulate)
+    rows = RowSplit(model, [next(stack.parameters()).device] * spatial) if spatial > 1 else None
+    step = make_train_step(model, LOSS_KW, augment=augment, accumulate=accumulate, rows=rows)
     losses, comps = [], []
     for k, (imgs, labels, mask) in enumerate(batches):
         args = [torch.from_numpy(np.ascontiguousarray(rank_rows(a, rank, world, accumulate)))
@@ -225,7 +228,8 @@ def mode_step(in_dir, out_dir, rank, world):
                                    if k.startswith(prefix)})
             batches = step_batches(accumulate=case["accumulate"], grid=model.grid)
             losses, comps, sd, _ = run_steps(model, stack, batches, augment=case["augment"],
-                                            accumulate=case["accumulate"], fsdp=case.get("fsdp", False))
+                                            accumulate=case["accumulate"], fsdp=case.get("fsdp", False),
+                                            spatial=case.get("spatial", 1))
             results[name] = {"losses": losses, "comps": comps, "state": sd}
     _dump(out_dir, "step", rank, results)
 

@@ -18,9 +18,11 @@ def main(argv=None) -> None:
     p = global_parser()
     args = p.parse_args(argv)
     # launched by torchrun (WORLD_SIZE > 1): join the process group, one
-    # rank a device, for the whole command (unless the caller already has)
+    # rank a device (or a group of --spatial-parallel devices), for the
+    # whole command (unless the caller already has)
     grouped = not dist.is_initialized() and initialize_multihost(
-        device=getattr(args, "device", None)
+        device=getattr(args, "device", None),
+        n_space=int(getattr(args, "spatial_parallel", 1) or 1),
     )
     try:
         _run(p, args)

@@ -186,7 +186,7 @@ class Predictor:
             vertical_crop_height=vertical_crop_height,
         )
         if devices:
-            RowSplit(model, devices)  # refuse a height or family that does not split before calibrating
+            RowSplit(model, devices)  # refuse a height that does not split before calibrating
         qp = quantize_stack(model, stack, calib) if quantize else None
         return cls(model, stack, meta=meta, qp=qp, devices=devices, **thresholds)
 

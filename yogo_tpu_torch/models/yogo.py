@@ -35,7 +35,7 @@ import functools
 import math
 import threading
 from dataclasses import dataclass
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,10 +85,14 @@ def _batch_norm(
     With batch statistics torch folds the *unbiased* batch variance into
     running_var; flax folds in the *biased* one, the same that normalises.
     torch's update is therefore taken into a zeroed scratch buffer (which
-    then holds momentum * unbiased variance) and rescaled by (n-1)/n."""
+    then holds momentum * unbiased variance) and rescaled by (n-1)/n.
+    With running statistics the module's tensors are taken to x's device
+    (a row shard's; a no-op on the module's own)."""
     if not batch_stats:
+        dev = x.device
         return F.batch_norm(
-            x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps
+            x, bn.running_mean.to(dev), bn.running_var.to(dev), bn.weight.to(dev),
+            bn.bias.to(dev), False, 0.0, bn.eps,
         )
     if world_size() > 1:
         return _global_batch_norm(bn, x, update_stats)
@@ -106,31 +110,54 @@ def _batch_norm(
 
 def _global_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
     """Batch statistics over every rank's rows, as flax's BatchNorm computes
-    them under a batch-sharded jit (XLA inserts the collectives): the
-    per-channel f32 sums of x and x^2 and the element count, combined by
-    ONE autograd-aware all_reduce, so the backward of the statistics
-    crosses the ranks too; flax's fast variance max(E[x^2] - E[x]^2, 0);
-    the biased global variance and the global mean folded into the running
-    statistics, identically on every rank. (nn.SyncBatchNorm runs only on
+    them under a batch-sharded jit (XLA inserts the collectives): see
+    batch_norm_shards, here with one shard. (nn.SyncBatchNorm runs only on
     a card and folds the unbiased variance.)"""
-    xf = x.float()
-    c = xf.shape[1]
-    local = torch.cat([
-        xf.sum((0, 2, 3)),
-        (xf * xf).sum((0, 2, 3)),
-        xf.new_full((1,), xf.numel() // c),
-    ])
-    total = all_reduce_sum_autograd(local)
+    return batch_norm_shards(bn, [x], update_stats)[0]
+
+
+def batch_norm_shards(
+    bn: nn.BatchNorm2d, parts: Sequence[torch.Tensor], update_stats: bool
+) -> List[torch.Tensor]:
+    """BatchNorm with batch statistics over several pieces of one batch
+    (the row shards of parallel/spatial.py, on their devices) and over
+    every rank's rows: each piece's per-channel sums of x and x^2 (x in
+    float32, the sums accumulated in float64) and its element count,
+    summed on bn's device (the copies are differentiable), then over the
+    ranks by ONE autograd-aware all_reduce, so the backward of the
+    statistics crosses the shards and the ranks too; flax's fast variance
+    max(E[x^2] - E[x]^2, 0), taken in float64 (in float32 it loses 6e-6
+    of the variance to cancellation over a 772x1032 batch of raw frames,
+    whose block-0 channels have means 6 standard deviations from 0), then
+    float32; each piece normalised on its own device. The global mean and
+    the biased global variance are folded into the running statistics
+    once, on bn's device, identically on every rank."""
+    home = bn.weight.device
+    xfs = [x.float() for x in parts]
+    c = xfs[0].shape[1]
+    total = None
+    for xf in xfs:
+        local = torch.cat([
+            xf.sum((0, 2, 3), dtype=torch.float64),
+            (xf * xf).sum((0, 2, 3), dtype=torch.float64),
+            xf.new_full((1,), xf.numel() // c, dtype=torch.float64),
+        ]).to(home)
+        total = local if total is None else total + local
+    total = all_reduce_sum_autograd(total)
     n = total[2 * c]
     mean = total[:c] / n
     var = torch.clamp_min(total[c:2 * c] / n - mean * mean, 0.0)
+    mean, var = mean.float(), var.float()
     mul = torch.rsqrt(var + bn.eps) * bn.weight
-    y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + bn.bias[None, :, None, None]
+    out = []
+    for x, xf in zip(parts, xfs):
+        m, k, b = (t.to(x.device)[None, :, None, None] for t in (mean, mul, bn.bias))
+        out.append(((xf - m) * k + b).to(x.dtype))
     if update_stats:
         with torch.no_grad():
             bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
             bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
-    return y.to(x.dtype)
+    return out
 
 
 class ConvStack(nn.Module):
@@ -167,6 +194,7 @@ class ConvStack(nn.Module):
         generator: Optional[torch.Generator] = None,
         remat: str = "none",
         batch_rows: Optional[Tuple[int, int]] = None,
+        split=None,
     ) -> torch.Tensor:
         """(B, C, H, W) in the compute dtype -> (B, 5+C, Sy, Sx) head logits.
         start_block > 0 skips blocks the fused stem already computed.
@@ -184,7 +212,14 @@ class ConvStack(nn.Module):
         remat recomputes activations in the backward pass instead of
         storing them: "blocks" keeps only each block's input, "full" only
         the stack's. The recomputation sees the same dropout masks and does
-        not fold the batch statistics in a second time."""
+        not fold the batch statistics in a second time.
+
+        split (a parallel/spatial.RowSplit) runs the blocks with each
+        image's rows over its devices, this module's weights taken to each
+        shard's device, the BN statistics over every shard's rows and the
+        same dropout masks on every shard; the head's rows are gathered on
+        the first device. "blocks" then checkpoints one layer over all its
+        shards."""
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
         fmt = torch.channels_last if self.channels_last else torch.contiguous_format
@@ -199,17 +234,39 @@ class ConvStack(nn.Module):
             update_stats = not calls
             calls.append(None)
             for i in range(first, last):
-                x = self._block(i, x, batch_stats, update_stats, masks.get(i))
+                if split is None:
+                    x = self._block(i, x, batch_stats, update_stats, masks.get(i))
+                else:
+                    x = split.stack_layer(self, i, x, batch_stats, update_stats, masks.get(i))
             return x
 
+        if split is not None:
+            if start_block:
+                raise ValueError("a row split runs the stack from block 0")
+            x = split.scatter(x)
         n = len(self.blocks)
         if remat == "none" or not torch.is_grad_enabled():
-            return run(x, start_block, n, [])
-        segments = [(start_block, n)] if remat == "full" else [
-            (i, i + 1) for i in range(start_block, n)
-        ]
-        for first, last in segments:
-            x = checkpoint(run, x, first, last, [], use_reentrant=False)
+            x = run(x, start_block, n, [])
+        else:
+            segments = [(start_block, n)] if remat == "full" else [
+                (i, i + 1) for i in range(start_block, n)
+            ]
+            for first, last in segments:
+                x = checkpoint(run, x, first, last, [], use_reentrant=False)
+        return x if split is None else split.gather(x, 2)
+
+    def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Block i's conv, its weights in x's dtype on x's device."""
+        s = self.blocks[i]
+        conv = getattr(self, f"conv{i}")
+        bias = conv.bias.to(x.device, x.dtype) if conv.bias is not None else None
+        return F.conv2d(x, conv.weight.to(x.device, x.dtype), bias, s.stride, s.padding)
+
+    def _finish(self, i: int, x: torch.Tensor, drop_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Block i's activation and channel dropout, after its BN."""
+        x = _activation(self.blocks[i].act, x)
+        if drop_mask is not None:
+            x = x * drop_mask.to(x.device)
         return x
 
     def _block(
@@ -220,16 +277,10 @@ class ConvStack(nn.Module):
         update_stats: bool,
         drop_mask: Optional[torch.Tensor],
     ) -> torch.Tensor:
-        s = self.blocks[i]
-        conv = getattr(self, f"conv{i}")
-        bias = conv.bias.to(x.dtype) if conv.bias is not None else None
-        x = F.conv2d(x, conv.weight.to(x.dtype), bias, s.stride, s.padding)
-        if s.bn:
+        x = self._conv(i, x)
+        if self.blocks[i].bn:
             x = _batch_norm(getattr(self, f"bn{i}"), x, batch_stats, update_stats)
-        x = _activation(s.act, x)
-        if drop_mask is not None:
-            x = x * drop_mask
-        return x
+        return self._finish(i, x, drop_mask)
 
     def _dropout_masks(
         self,
@@ -279,7 +330,8 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 class LayerNorm(nn.Module):
     """Parameters of one LayerNorm over the channels (flax's scale / bias
-    are weight / bias); the forward is `layer_norm`."""
+    are weight / bias); the forward is `layer_norm`, the parameters taken
+    to x's device."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -287,15 +339,15 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias)
+        return layer_norm(x, self.weight.to(x.device), self.bias.to(x.device))
 
 
 def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """flax nn.Conv(dtype=dtype) on an NHWC tensor: input, kernel and bias
-    cast to `dtype`, the conv run on the channels_last NCHW view, NHWC out
-    in `dtype` (contiguous)."""
+    cast to `dtype` (the module's tensors taken to x's device), the conv
+    run on the channels_last NCHW view, NHWC out in `dtype` (contiguous)."""
     y = F.conv2d(
-        x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+        x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(x.device, dtype), conv.bias.to(x.device, dtype),
         conv.stride, conv.padding, conv.dilation, conv.groups,
     )
     return y.permute(0, 2, 3, 1).contiguous()
@@ -303,7 +355,7 @@ def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Te
 
 def _linear(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax nn.Dense(dtype=dtype) over the last axis."""
-    return F.linear(x.to(dtype), fc.weight.to(dtype), fc.bias.to(dtype))
+    return F.linear(x.to(dtype), fc.weight.to(x.device, dtype), fc.bias.to(x.device, dtype))
 
 
 class ConvNeXtBlock(nn.Module):
@@ -311,7 +363,9 @@ class ConvNeXtBlock(nn.Module):
     depthwise conv, LayerNorm, Dense 4x, exact-erf GELU, Dense back, the
     per-channel `gamma` (1e-6 at init) and the residual. NHWC in, NHWC
     float32 out: the LayerNorm returns float32, so in a bf16 model only the
-    convs and Dense layers compute in bf16."""
+    convs and Dense layers compute in bf16. `dw` is the one op that reads
+    neighbouring rows; `rest` is row-local (a row shard runs `dw` on its
+    window, `rest` on its own rows)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -321,10 +375,75 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv2 = nn.Linear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
 
+    def dw(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return _conv_nhwc(x, self.dwconv, dtype)
+
+    def rest(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The block's output from its input x and dw(x) at the same rows."""
+        h = F.gelu(_linear(self.norm(h), self.pwconv1, dtype), approximate="none")
+        return x + self.gamma.to(x.device) * _linear(h, self.pwconv2, dtype)
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        h = self.norm(_conv_nhwc(x, self.dwconv, dtype))
-        h = F.gelu(_linear(h, self.pwconv1, dtype), approximate="none")
-        return x + self.gamma * _linear(h, self.pwconv2, dtype)
+        return self.rest(x, self.dw(x, dtype), dtype)
+
+
+class ConvNeXtLayers:
+    """The layer steps of a ConvNeXt-Small forward, on NHWC activations:
+    the module in `dtype` (ConvNeXtSmall) or, with the same names, the
+    int8 program (ops/quant_convnext.py). Steps that read neighbouring
+    rows take a window of rows (`stem_conv`, `down_conv`, `dw`); the rest
+    are row-local. `run_convnext` composes them over the whole image,
+    parallel/spatial.RowSplit over row shards."""
+
+    def __init__(self, net: "ConvNeXtSmall", dtype: torch.dtype):
+        self.net, self.dtype = net, dtype
+
+    def stem_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW input rows -> the patchify conv's NHWC rows."""
+        return _conv_nhwc(x.permute(0, 2, 3, 1), self.net.stem_conv, self.dtype)
+
+    def stem_norm(self, h: torch.Tensor) -> torch.Tensor:
+        return self.net.stem_norm(h)
+
+    def down_in(self, s: int, h: torch.Tensor) -> torch.Tensor:
+        return getattr(self.net, f"down{s}_norm")(h)
+
+    def down_conv(self, s: int, h: torch.Tensor) -> torch.Tensor:
+        return _conv_nhwc(h, getattr(self.net, f"down{s}_conv"), self.dtype)
+
+    def dw(self, s: int, b: int, h: torch.Tensor) -> torch.Tensor:
+        return getattr(self.net, f"stage{s}_block{b}").dw(h, self.dtype)
+
+    def rest(self, s: int, b: int, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return getattr(self.net, f"stage{s}_block{b}").rest(x, h, self.dtype)
+
+    def block(self, s: int, b: int, x: torch.Tensor) -> torch.Tensor:
+        return self.rest(s, b, x, self.dw(s, b, x))
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """The 1x1 format conv and the stride-4 transpose upsample (both
+        row-local) -> the head's NHWC rows in the compute dtype."""
+        net, dtype = self.net, self.dtype
+        h = _conv_nhwc(h, net.format_conv, dtype).permute(0, 3, 1, 2)
+        up = net.format_up
+        out = F.conv_transpose2d(h, up.weight.to(h.device, dtype), up.bias.to(h.device, dtype), up.stride)
+        return out.permute(0, 2, 3, 1).contiguous()
+
+
+def run_convnext(layers, x: torch.Tensor, depths: Sequence[int], remat: str = "none") -> torch.Tensor:
+    """A ConvNeXt-Small forward over the whole image from its layer steps
+    (ConvNeXtLayers or the int8 program's): NCHW x -> the NHWC head.
+    remat="blocks" checkpoints each block."""
+    h = layers.stem_norm(layers.stem_conv(x))
+    for s, depth in enumerate(depths):
+        if s > 0:
+            h = layers.down_conv(s, layers.down_in(s, h))
+        for b in range(depth):
+            if remat == "blocks":
+                h = checkpoint(layers.block, s, b, h, use_reentrant=False)
+            else:
+                h = layers.block(s, b, h)
+    return layers.head(h)
 
 
 class ConvNeXtSmall(nn.Module):
@@ -342,7 +461,9 @@ class ConvNeXtSmall(nn.Module):
     forward. (In the JAX
     package "blocks" saves the activations named `yogo_block`, which this
     family does not name, so there it recomputes as much as "full";
-    recomputation changes memory, never values.)"""
+    recomputation changes memory, never values.) `split` (a
+    parallel/spatial.RowSplit) runs it with each image's rows over the
+    split's devices; "blocks" then checkpoints a block over its shards."""
 
     def __init__(self, num_outputs: int, in_channels: int = 1,
                  depths: Tuple[int, ...] = CONVNEXT_DEPTHS,
@@ -370,6 +491,7 @@ class ConvNeXtSmall(nn.Module):
         generator: Optional[torch.Generator] = None,
         remat: str = "none",
         batch_rows: Optional[Tuple[int, int]] = None,
+        split=None,
     ) -> torch.Tensor:
         """(B, C, H, W) in the compute dtype -> (B, 5+C, Sy, Sx) head
         logits in the compute dtype (a channels_last view)."""
@@ -380,27 +502,16 @@ class ConvNeXtSmall(nn.Module):
         del train, bn_frozen, generator  # no BN, no dropout
         recompute = remat != "none" and torch.is_grad_enabled()
         if recompute and remat == "full":
-            return checkpoint(self._forward, x, "none", use_reentrant=False)
-        return self._forward(x, "blocks" if recompute else "none")
+            return checkpoint(self._forward, x, "none", split, use_reentrant=False)
+        return self._forward(x, "blocks" if recompute else "none", split)
 
-    def _forward(self, x: torch.Tensor, remat: str) -> torch.Tensor:
-        dtype = x.dtype
-        h = _conv_nhwc(x.permute(0, 2, 3, 1), self.stem_conv, dtype)
-        h = self.stem_norm(h)
-        for s, depth in enumerate(self.depths):
-            if s > 0:
-                h = getattr(self, f"down{s}_norm")(h)
-                h = _conv_nhwc(h, getattr(self, f"down{s}_conv"), dtype)
-            for b in range(depth):
-                block = getattr(self, f"stage{s}_block{b}")
-                if remat == "blocks":
-                    h = checkpoint(block, h, dtype, use_reentrant=False)
-                else:
-                    h = block(h, dtype)
-        h = _conv_nhwc(h, self.format_conv, dtype).permute(0, 3, 1, 2)
-        up = self.format_up
-        out = F.conv_transpose2d(h, up.weight.to(dtype), up.bias.to(dtype), up.stride)
-        return out.contiguous(memory_format=torch.channels_last)
+    def _forward(self, x: torch.Tensor, remat: str, split=None) -> torch.Tensor:
+        layers = ConvNeXtLayers(self, x.dtype)
+        if split is None:
+            out = run_convnext(layers, x, self.depths, remat)
+        else:
+            out = split.convnext([layers] * len(split.devices), x, remat)
+        return out.permute(0, 3, 1, 2)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
@@ -685,6 +796,7 @@ class YOGO:
         generator: Optional[torch.Generator] = None,
         remat: str = "none",
         batch_rows: Optional[Tuple[int, int]] = None,
+        split=None,
     ) -> torch.Tensor:
         """Raw input -> decoded (B, 5+C, Sy, Sx) predictions, or with
         decode=False the undecoded NHWC head (B, Sy, Sx, 5+C) in the compute
@@ -700,13 +812,16 @@ class YOGO:
         ConvNeXtSmall). tuning=True freezes BN: it
         normalises with the running statistics and never updates them, in
         either mode (reference: yogo/model.py:67-70). ConvNeXt has neither
-        BN nor dropout."""
+        BN nor dropout. `split` (a parallel/spatial.RowSplit over this
+        model) runs the module with each image's rows over its devices,
+        from x on the first; the fused stem kernel is then not taken (the
+        row-split inference of infer / serve is RowSplit.forward_raw)."""
         x = self._to_nchw(x)
         with contextlib.ExitStack() as ctx:
             ctx.enter_context(no_tf32(x.device))
             if not train:
                 ctx.enter_context(torch.inference_mode())
-            if self.stem_kernel_eligible(stack, x, train):
+            if split is None and self.stem_kernel_eligible(stack, x, train):
                 w9, b9 = stack.folded_stem()
                 layout = "nhwc" if stack.channels_last else "nchw"
                 h = fused_stem_nchw(x[:, 0].contiguous(), w9, b9, layout=layout)
@@ -716,7 +831,7 @@ class YOGO:
                     x = x.float()
                 out = stack(
                     x.to(self.compute_dtype), train=train, bn_frozen=tuning,
-                    generator=generator, remat=remat, batch_rows=batch_rows,
+                    generator=generator, remat=remat, batch_rows=batch_rows, split=split,
                 )
             raw = out.permute(0, 2, 3, 1)  # NHWC head
             if not decode:

@@ -45,6 +45,7 @@ from yogo_tpu_torch.models.yogo import (
     layer_norm,
     no_tf32,
     resolve_device,
+    run_convnext,
 )
 from yogo_tpu_torch.ops.int8_conv import int8_conv, pack_weights
 from yogo_tpu_torch.ops.quant import quantize_weights, requant_nhwc, to_nchw_f32
@@ -83,34 +84,108 @@ def _round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.float() if dtype == torch.float32 else t.to(dtype).float()
 
 
-def _forward(p: Dict[str, torch.Tensor], x: torch.Tensor, site: Site, cdt: torch.dtype) -> torch.Tensor:
-    """Functional twin of models/yogo.ConvNeXtSmall (inference) with every
-    site routed through `site(key, h, stride)` -> f32 NHWC (stride None
-    for a Dense, 2 for a downsample). p: the module's state_dict tensors,
-    x: NCHW float. Float convs take operands rounded to `cdt` and give f32.
-    Returns the f32 NHWC head."""
+class SiteLayers:
+    """ConvNeXt-Small's layer steps (models/yogo.ConvNeXtLayers' names,
+    composed by models/yogo.run_convnext, or over row shards by
+    parallel/spatial.RowSplit) as the functional twin of the module
+    (inference) over `p`, the module's state_dict tensors, on NHWC
+    activations. Float convs take operands rounded to `cdt` and give f32.
+    Each site is two steps: `site_in` on the rows its input is computed
+    at, `site_conv` on the rows (a downsample's window) the matmul reads;
+    here site_in is the identity and site_conv the callback
+    site(key, h, stride) -> f32 NHWC (stride None for a Dense, 2 for a
+    downsample)."""
 
-    def conv(h_nhwc, name, stride=1, padding=0, groups=1):
+    def __init__(self, p: Dict[str, torch.Tensor], site: Optional[Site], cdt: torch.dtype):
+        self.p, self.site, self.cdt = p, site, cdt
+
+    def site_in(self, key: str, h: torch.Tensor) -> torch.Tensor:
+        return h
+
+    def site_conv(self, key: str, h: torch.Tensor, stride: Optional[int]) -> torch.Tensor:
+        return self.site(key, h, stride)
+
+    def _conv(self, h_nhwc, name, stride=1, padding=0, groups=1):
+        p, cdt = self.p, self.cdt
         y = F.conv2d(_round_to(h_nhwc, cdt).permute(0, 3, 1, 2), _round_to(p[f"{name}.weight"], cdt),
                      None, stride, padding, 1, groups)
         return y.permute(0, 2, 3, 1) + p[f"{name}.bias"]
 
-    def norm(h, name):
-        return layer_norm(h, p[f"{name}.weight"], p[f"{name}.bias"])
+    def _norm(self, h, name):
+        return layer_norm(h, self.p[f"{name}.weight"], self.p[f"{name}.bias"])
 
-    h = norm(conv(x.permute(0, 2, 3, 1), "stem_conv", stride=4), "stem_norm")
-    for s, (depth, dim) in enumerate(zip(DEPTHS, DIMS)):
-        if s > 0:
-            h = site(f"down{s}_conv", norm(h, f"down{s}_norm"), 2)
-        for b in range(depth):
-            blk = f"stage{s}_block{b}"
-            inp = h
-            h = norm(conv(h, f"{blk}.dwconv", padding=3, groups=dim), f"{blk}.norm")
-            h = F.gelu(site(f"{blk}/pwconv1", h, None), approximate="none")
-            h = inp + p[f"{blk}.gamma"] * site(f"{blk}/pwconv2", h, None)
-    h = conv(h, "format_conv").permute(0, 3, 1, 2)
-    up = F.conv_transpose2d(_round_to(h, cdt), _round_to(p["format_up.weight"], cdt), None, 4)
-    return up.permute(0, 2, 3, 1) + p["format_up.bias"]
+    def stem_conv(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x.permute(0, 2, 3, 1), "stem_conv", stride=4)
+
+    def stem_norm(self, h: torch.Tensor) -> torch.Tensor:
+        return self._norm(h, "stem_norm")
+
+    def down_in(self, s: int, h: torch.Tensor) -> torch.Tensor:
+        return self.site_in(f"down{s}_conv", self._norm(h, f"down{s}_norm"))
+
+    def down_conv(self, s: int, h: torch.Tensor) -> torch.Tensor:
+        return self.site_conv(f"down{s}_conv", h, 2)
+
+    def dw(self, s: int, b: int, h: torch.Tensor) -> torch.Tensor:
+        return self._conv(h, f"stage{s}_block{b}.dwconv", padding=3, groups=DIMS[s])
+
+    def rest(self, s: int, b: int, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        blk = f"stage{s}_block{b}"
+        h = self._norm(h, f"{blk}.norm")
+        key = f"{blk}/pwconv1"
+        h = F.gelu(self.site_conv(key, self.site_in(key, h), None), approximate="none")
+        key = f"{blk}/pwconv2"
+        return x + self.p[f"{blk}.gamma"] * self.site_conv(key, self.site_in(key, h), None)
+
+    def block(self, s: int, b: int, x: torch.Tensor) -> torch.Tensor:
+        return self.rest(s, b, x, self.dw(s, b, x))
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        p, cdt = self.p, self.cdt
+        h = self._conv(h, "format_conv").permute(0, 3, 1, 2)
+        up = F.conv_transpose2d(_round_to(h, cdt), _round_to(p["format_up.weight"], cdt), None, 4)
+        return up.permute(0, 2, 3, 1) + p["format_up.bias"]
+
+
+def _forward(p: Dict[str, torch.Tensor], x: torch.Tensor, site: Site, cdt: torch.dtype) -> torch.Tensor:
+    """Functional twin of models/yogo.ConvNeXtSmall (inference) with every
+    site routed through `site(key, h, stride)` (SiteLayers). x: NCHW float.
+    Returns the f32 NHWC head."""
+    return run_convnext(SiteLayers(p, site, cdt), x, DEPTHS)
+
+
+class QuantLayers(SiteLayers):
+    """The int8 program's layer steps: an int8 site requantizes its f32
+    input (`site_in`, clip(rint(h / s), -127, 127); the codes appended to
+    `record` if a list) and launches the int8 conv kernel on the codes
+    (`site_conv`: a Dense is its 1x1 conv, a downsample the (2, 2, 0)
+    conv, f32 out); a site that is not int8 is the bf16 float site. So a
+    row shard requantizes the rows it owns, and a downsample's window
+    gathers codes."""
+
+    def __init__(self, qp: Dict[str, Any], record: Optional[list] = None):
+        int8, flt = qp["int8"], qp["float"]
+        keys = [k for k, _ in quant_sites(min_cin=0) if k in int8]
+        if len(keys) != len(int8):
+            raise ValueError("qp['int8'] has keys outside the known site set")
+        super().__init__(flt, _float_site(flt, torch.bfloat16), torch.bfloat16)
+        self.int8, self.scales, self.record = int8, qp["scales"], record
+        self.index = {k: i for i, k in enumerate(keys)}
+
+    def site_in(self, key: str, h: torch.Tensor) -> torch.Tensor:
+        if key not in self.int8:
+            return h
+        q = requant_nhwc(h, self.scales[self.index[key]])
+        if self.record is not None:
+            self.record.append(q)
+        return q
+
+    def site_conv(self, key: str, h: torch.Tensor, stride: Optional[int]) -> torch.Tensor:
+        if key not in self.int8:
+            return self.site(key, h, stride)
+        blk = self.int8[key]
+        return int8_conv(h.contiguous(), blk["w8"], blk["deq"], blk["b"], cin=h.shape[-1],
+                         stride=stride or 1, padding=0, act=None)
 
 
 def _float_site(p: Dict[str, torch.Tensor], cdt: torch.dtype) -> Site:
@@ -270,27 +345,9 @@ def quantized_convnext_forward(
     NHWC head (B, Sy, Sx, 5+C) in f32. The residual stream is f32 (the
     JAX default intermediate_dtype). `record`, if a list, receives the
     int8 codes entering each int8 site, NHWC, in site order."""
-    int8, flt = qp["int8"], qp["float"]
-    keys = [k for k, _ in quant_sites(min_cin=0) if k in int8]
-    if len(keys) != len(int8):
-        raise ValueError("qp['int8'] has keys outside the known site set")
-    index = {k: i for i, k in enumerate(keys)}
-    scales = qp["scales"]
-    bf16_site = _float_site(flt, torch.bfloat16)
-
-    def site(key, h, stride):
-        if key not in int8:
-            return bf16_site(key, h, stride)
-        blk = int8[key]
-        q = requant_nhwc(h, scales[index[key]])
-        if record is not None:
-            record.append(q)
-        return int8_conv(q.contiguous(), blk["w8"], blk["deq"], blk["b"], cin=q.shape[-1],
-                         stride=stride or 1, padding=0, act=None)
-
     x = YOGO._to_nchw(x)
     with torch.inference_mode(), no_tf32(x.device):
-        raw = _forward(flt, x.float(), site, torch.bfloat16)
+        raw = run_convnext(QuantLayers(qp, record), x.float(), DEPTHS)
         if not decode:
             return raw
         return model._decode_raw(raw, inference)

@@ -41,21 +41,22 @@ def _env_address() -> Optional[str]:
     return os.environ.get("JAX_COORDINATOR_ADDRESS")
 
 
-def local_device(device_arg=None) -> torch.device:
+def local_device(device_arg=None, n_space: int = 1) -> torch.device:
     """The device of this rank: `device_arg` when the caller names one
-    ("cpu", or a card), else cuda:LOCAL_RANK, made current. Without a card
-    and without an explicit device it raises: a rank never drops to the
-    CPU on its own."""
+    ("cpu", or a card), else cuda:LOCAL_RANK * n_space (the first of the
+    rank's n_space row-shard cards, parallel/mesh.device_grid), made
+    current. Without a card and without an explicit device it raises: a
+    rank never drops to the CPU on its own."""
     if device_arg is not None:
         dev = torch.device(device_arg)
         if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", _env_int("LOCAL_RANK") or 0)
+            dev = torch.device("cuda", (_env_int("LOCAL_RANK") or 0) * n_space)
     else:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' (--device cpu) to run on the CPU"
             )
-        dev = torch.device("cuda", _env_int("LOCAL_RANK") or 0)
+        dev = torch.device("cuda", (_env_int("LOCAL_RANK") or 0) * n_space)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     return dev
@@ -63,11 +64,12 @@ def local_device(device_arg=None) -> torch.device:
 
 def collective_device(device: torch.device) -> torch.device:
     """Where this rank's collectives on a tensor of `device` run: under
-    NCCL the card the group is bound to (cuda:LOCAL_RANK; a rank of a
-    row-split run holds other cards too), else `device`."""
+    NCCL the card the group is bound to (the rank's first card; a rank of
+    a row-split run holds other cards too), else `device`."""
     if device.type == "cuda" and dist.is_available() and dist.is_initialized() \
             and dist.get_backend() == "nccl":
-        return torch.device("cuda", _env_int("LOCAL_RANK") or 0)
+        bound = getattr(dist.distributed_c10d._get_default_group(), "bound_device_id", None)
+        return bound if bound is not None else torch.device("cuda", _env_int("LOCAL_RANK") or 0)
     return device
 
 
@@ -78,6 +80,7 @@ def initialize_multihost(
     backend: Optional[str] = None,
     timeout_s: float = DEFAULT_TIMEOUT_S,
     device=None,
+    n_space: int = 1,
 ) -> bool:
     """Join the process group of a multi-process run.
 
@@ -87,7 +90,8 @@ def initialize_multihost(
     works. One process (or no world size at all) creates no group and
     returns False; otherwise the group is created with an explicit timeout
     and True is returned. `device` is this rank's device as the caller
-    names it (None: the card, as every entry point). backend=None picks
+    names it (None: the card, as every entry point; with n_space row
+    shards a rank, the first of its n_space cards). backend=None picks
     NCCL for a card and gloo for the CPU; pass "gloo" to run ranks that
     share one card. The JAX package's TPU_WORKER_HOSTNAMES autodetect has
     no counterpart here."""
@@ -113,7 +117,7 @@ def initialize_multihost(
         rank=int(rank),
         timeout=timedelta(seconds=timeout_s),
         # NCCL binds the group to this rank's card
-        device_id=local_device(device) if backend == "nccl" else None,
+        device_id=local_device(device, n_space) if backend == "nccl" else None,
     )
     return True
 

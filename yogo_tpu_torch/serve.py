@@ -341,7 +341,7 @@ def build_server(
     img_h, img_w = (int(d) for d in model.img_size)
     crop_hw = (img_h, img_w) if vertical_crop_height else None
     if spatial_parallel > 1:
-        RowSplit(model, grid[0])  # refuse a height or family that does not split, at start-up
+        RowSplit(model, grid[0])  # refuse a height that does not split, at start-up
 
     num_classes = model.num_classes
     if class_names is None:

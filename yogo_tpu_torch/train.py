@@ -8,7 +8,10 @@ the step is the global batch's: BatchNorm statistics over every rank's
 rows, the loss divided by the global real-image count, the gradients
 summed over the ranks before the clamp; rank 0 writes the run directory.
 `--fsdp` shards the large parameters and their AdamW moments over the
-ranks (FSDP2, parallel/mesh.py).
+ranks (FSDP2, parallel/mesh.py). `--spatial-parallel N` splits each
+image's rows over N devices of the rank (parallel/spatial.py) in the
+training steps and validation; the final test pass runs unsplit, as in
+the JAX package.
 
 Recipe (reference: yogo/train.py:206-223,295-342): AdamW(lr 3e-4, wd 5e-2)
 with decoupled weight decay on every parameter, a cosine schedule stepped
@@ -60,7 +63,13 @@ from yogo_tpu_torch.parallel.distributed import (
     local_device,
     process_shard,
 )
-from yogo_tpu_torch.parallel.mesh import full_state_dict, fully_shard_stack
+from yogo_tpu_torch.parallel.mesh import (
+    device_grid,
+    full_state_dict,
+    fully_shard_stack,
+    validate_spatial_height,
+)
+from yogo_tpu_torch.parallel.spatial import RowSplit
 from yogo_tpu_torch.utils.checkpoint import load_any, restore_opt_state, save_checkpoint
 from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
 from yogo_tpu_torch.utils.logging import RunLogger
@@ -150,6 +159,7 @@ def make_train_step(
     tuning: bool = False,
     remat: str = "none",
     accumulate: int = 1,
+    rows: Optional[RowSplit] = None,
 ) -> Callable:
     """Build the train step: (state, imgs, labels, img_mask, generator) ->
     (state, loss, components); loss and components are detached scalars on
@@ -184,7 +194,16 @@ def make_train_step(
     gradients are summed over the ranks in one bucket before the clamp;
     the dropout masks are rows of the global batch's draw (flips are one
     coin a batch, equal on every rank); the loss returned is the global
-    batch's on every rank. At world 1 nothing of this runs."""
+    batch's on every rank. At world 1 nothing of this runs.
+
+    rows (a parallel/spatial.RowSplit over `model`, its first device the
+    stack's) splits each image's rows over the split's devices: the batch
+    arrives on the first, flips run on the whole batch before the scatter,
+    the stack's own weights serve every shard (the gradients sum on it),
+    BN takes its statistics over every shard's rows (and every rank's),
+    the dropout masks are drawn once and applied on every shard, and the
+    head's rows are gathered for the loss. "blocks" checkpoints one layer
+    over its shards, "full" the whole split forward."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
     if accumulate < 1:
@@ -196,7 +215,7 @@ def make_train_step(
             x, labels = random_flips(generator, x, labels)
         out = model.apply(
             stack, x, train=True, tuning=tuning, generator=generator, remat=remat,
-            batch_rows=batch_rows,
+            batch_rows=batch_rows, split=rows,
         )
         return yogo_loss(out, labels, image_mask=img_mask, n_images=n_images, **loss_kwargs)
 
@@ -256,7 +275,8 @@ def make_train_step(
 
 
 def make_eval_step(
-    model: YOGO, loss_kwargs: Dict[str, float], quant_params=None
+    model: YOGO, loss_kwargs: Dict[str, float], quant_params=None,
+    rows: Optional[RowSplit] = None,
 ) -> Callable:
     """(stack, imgs, labels, img_mask) -> (loss, decoded inference preds):
     the loss of the eval-mode output with class logits, and the same
@@ -269,7 +289,11 @@ def make_eval_step(
     stack argument is then unused). The batch is cast to f32 first, as the
     float path casts it to the compute dtype: block 0 then runs the plain
     f32 conv, not the stem kernel, with the same numbers as the JAX
-    package's (uint8 and its f32 cast round alike to bf16)."""
+    package's (uint8 and its f32 cast round alike to bf16).
+
+    rows (a parallel/spatial.RowSplit) runs the float forward with each
+    image's rows over its devices (BN with the running statistics is
+    row-local), as the JAX package validates on its (data, space) mesh."""
 
     quant_forward = family_quant_forward(model) if quant_params is not None else None
 
@@ -277,7 +301,7 @@ def make_eval_step(
         if quant_forward is not None:
             out_train = quant_forward(model, quant_params, imgs.float(), inference=False)
         else:
-            out_train = model.apply(stack, imgs.to(model.compute_dtype), train=False)
+            out_train = model.apply(stack, imgs.to(model.compute_dtype), train=False, split=rows)
         with torch.no_grad():
             if process_shard()[1] > 1:
                 # the global batch's loss: every rank's sum over the
@@ -319,27 +343,40 @@ class Trainer:
     without one): the loader shards by them, `batch_size` is per rank as in
     the JAX package, the step is the global batch's (make_train_step), rank
     0 alone writes the run directory, a SIGTERM to any rank stops every
-    rank at the same epoch boundary, and every rank runs the test pass."""
+    rank at the same epoch boundary, and every rank runs the test pass.
+
+    config["spatial_parallel"] N > 1 splits each image's rows over N
+    devices (parallel/mesh.device_grid: N cards, each rank's own N under a
+    process group, or N handles to `device` when it is not a card), or
+    over the first N of `devices` when given (["cuda:0"] * N maps the
+    shards onto one card). The training steps and validation run split;
+    the module, its optimizer and its checkpoints live on the first
+    device, and the final test pass runs there unsplit."""
 
     # LR-log clock offset vs global_step (set by _init_training_tools;
     # class-level default keeps partially-constructed Trainers working)
     _lr_step_offset = 0
 
-    def __init__(self, config: Dict[str, Any], device=None):
+    def __init__(self, config: Dict[str, Any], device=None, devices=None):
         self.config = config
-        if int(config.get("spatial_parallel", 1) or 1) > 1:
-            raise NotImplementedError(
-                "--spatial-parallel training (row-split convs with halo "
-                "exchange, autograd through the halos, BN statistics over "
-                "the shards) is not ported yet (ROADMAP.md Queue 1 item 15b-2)"
-            )
         self.rank, self.world = process_shard()
-        self.device = local_device(device)
-        if self.world == 1 and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+        self._spatial = int(config.get("spatial_parallel", 1) or 1)
+        if self._spatial > 1 and config.get("image_hw") is not None:
+            validate_spatial_height(self._spatial, int(config["image_hw"][0]))
+        if self._spatial > 1 or devices:
+            self.devices = device_grid(self._spatial, devices=devices, device=device)[0]
+            self.device = local_device(self.devices[0])
+        else:
+            self.device = local_device(device)
+            self.devices = [self.device]
+        self.rows: Optional[RowSplit] = None
+        n_cards = len({d for d in self.devices if d.type == "cuda"})
+        if self.world == 1 and self.device.type == "cuda" and torch.cuda.device_count() > n_cards:
             # the port runs one process a card, where the JAX package's
             # Trainer meshes every local device
             n = torch.cuda.device_count()
-            print(f"train: one process sees {n} cards and trains on {self.device} alone; "
+            on = f"{self.device} alone" if n_cards == 1 else f"{n_cards} of them ({self._spatial} row shards)"
+            print(f"train: one process sees {n} cards and trains on {on}; "
                   f"for all of them launch one process a card: torchrun --nproc-per-node {n} "
                   "-m yogo_tpu_torch train ...")
         config["device"] = device_name(self.device)
@@ -441,6 +478,8 @@ class Trainer:
                         Path(pretrained).resolve().parent
                     )
         self.Sx, self.Sy = self.model.grid
+        if self._spatial > 1:
+            self.rows = RowSplit(self.model, self.devices)
 
     def _init_dataset(self) -> None:
         loaders = get_dataloader(
@@ -521,8 +560,9 @@ class Trainer:
             self.model, self.loss_kwargs, tuning=self.tuning,
             remat=cfg.get("remat", "none"),
             accumulate=self._accumulate,
+            rows=self.rows,
         )
-        self._eval_step = make_eval_step(self.model, self.loss_kwargs)
+        self._eval_step = make_eval_step(self.model, self.loss_kwargs, rows=self.rows)
         self._seed = int(cfg.get("seed", 0))
         # a CPU generator: the same draws whatever device trains
         self._gen = torch.Generator()

@@ -2,9 +2,9 @@
 flag-compatible with the reference CLI, reference:
 yogo/utils/argparsers.py:74-489): `train`, `test`, `export`, `infer` and
 `serve` with the same flag names, validating types and defaults as the JAX
-package; `--device` defaults to CUDA. `infer` / `serve --spatial-parallel
-N` split each image's rows over N devices; `train` / `test` refuse N > 1
-naming ROADMAP item 15b-2.
+package; `--device` defaults to CUDA. `train`, `infer` and `serve
+--spatial-parallel N` split each image's rows over N devices (the JAX
+package's `test` has no such flag, and neither has this one).
 """
 
 from __future__ import annotations
@@ -304,9 +304,12 @@ def train_parser(parser=None):
     parser.add_argument(
         "--spatial-parallel", type=positive_int, default=1,
         help=(
-            "split each image's rows over N devices (extension of the JAX "
-            "package; training's row split is not ported yet, ROADMAP item "
-            "15b-2: any N > 1 is refused) (default: 1)"
+            "split each image's rows over N devices for the training steps "
+            "and validation: N cards (each rank's own N under torchrun), or N "
+            "handles to the CPU with --device cpu; halo rows are exchanged "
+            "between the shards and BatchNorm takes its statistics over all "
+            "of them; the image height must divide by N; the final test pass "
+            "runs unsplit (default: 1)"
         ),
     )
     parser.add_argument(
