@@ -1,0 +1,7 @@
+"""Device time of the operations launched inside the benchmark's
+"bench/forward" span (Predictor.forward_raw), a batch, ms."""
+
+
+def read(ctx):
+    s = ctx["trace"]["spans"].get("bench/forward")
+    return 1e3 * s["device_s"] / s["count"] if s and s["count"] and s["device_s"] else None
