@@ -3208,8 +3208,14 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from yogo_tpu_torch import kernels
     from yogo_tpu_torch.infer import Predictor
-    from yogo_tpu_torch.ops import nms
     from yogo_tpu_torch.ops.stem import LAUNCHES, fused_stem_nchw, fused_stem_reference
+    from yogo_tpu_torch.utils.tracing import COUNTS
+
+    def nms_per_call(before: dict) -> tuple:
+        """(keep updates, host syncs) an NMS call since the COUNTS copy
+        `before`, a mean over the calls."""
+        n = max(COUNTS["nms_calls"] - before.get("nms_calls", 0), 1)
+        return tuple((COUNTS[k] - before.get(k, 0)) / n for k in ("nms_rounds", "nms_host_syncs"))
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3289,7 +3295,9 @@ def main() -> int:
         for i in range(n_img):
             mask = torch.arange(n_img) == i
             per.append(int(pred.count(raw, mask).sum()))
-        return per, pred.count(raw, torch.ones(n_img, dtype=torch.bool)).cpu().numpy()
+        before = dict(COUNTS)
+        classes = pred.count(raw, torch.ones(n_img, dtype=torch.bool)).cpu().numpy()
+        return per, classes, nms_per_call(before)
 
     preds = {}
     LAUNCHES.clear()
@@ -3298,17 +3306,17 @@ def main() -> int:
             CKPT, half=True, device=dev, channels_last=layout == "nhwc"
         )
         raw = pred.forward_raw(imgs4)
-        per, classes = per_image_counts(pred, raw)
+        per, classes, (rounds, syncs) = per_image_counts(pred, raw)
         if not torch.isfinite(raw.float()).all() or raw.shape != (n_img, 97, 129, 7):
             raise AssertionError(f"bf16 {layout}: bad head {raw.shape}")
         log(f"bf16 {layout}: per-image {per} (golden {want_per_image}), "
             f"per-class {classes.tolist()} (golden {want_classes.tolist()}), "
-            f"NMS rounds {nms.LAST.rounds}, host syncs {nms.LAST.host_syncs}")
+            f"NMS rounds {rounds}, host syncs {syncs}")
         if any(abs(a - b) > 2 for a, b in zip(per, want_per_image)):
             raise AssertionError(f"bf16 {layout} counts {per} vs golden {want_per_image}")
         report[f"bf16_{layout}"] = {"per_image": per, "per_class": classes.tolist(),
-                                    "nms_rounds": nms.LAST.rounds,
-                                    "nms_host_syncs": nms.LAST.host_syncs}
+                                    "nms_rounds": rounds,
+                                    "nms_host_syncs": syncs}
         preds[layout] = pred
     launches = dict(LAUNCHES)
     log(f"stem launches on the main path: {launches}")
@@ -3320,7 +3328,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     try:
         p32 = Predictor.from_checkpoint(CKPT, half=False, device=dev)
-        per, classes = per_image_counts(p32, p32.forward_raw(imgs4))
+        per, classes, _ = per_image_counts(p32, p32.forward_raw(imgs4))
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
     log(f"f32 (TF32 off): per-image {per}, per-class {classes.tolist()}")
@@ -3369,14 +3377,15 @@ def main() -> int:
             h0 = fused_stem_nchw(x64, w9, b9, layout=layout)
             raw = model.apply(stack, x_nchw, decode=False)
             mask = torch.ones(bsz, dtype=torch.bool, device=dev)
+            before = dict(COUNTS)
             stages[layout] = {
                 "stem_ms": timing[layout]["ms"],
                 "blocks_1_7_ms": cuda_ms(lambda: stack(h0, start_block=1), 10),
                 "forward_raw_ms": cuda_ms(lambda: model.apply(stack, x_nchw, decode=False), 10),
                 "count_ms": cuda_ms(lambda: pred.count(raw, mask), 10),
-                "nms_rounds_b64": nms.LAST.rounds,
-                "nms_host_syncs_b64": nms.LAST.host_syncs,
             }
+            rounds, syncs = nms_per_call(before)
+            stages[layout].update(nms_rounds_b64=rounds, nms_host_syncs_b64=syncs)
 
         # the bf16 count path, batch by batch (host clock, synchronized):
         # from host uint8 batches (what predict() does) and from a batch

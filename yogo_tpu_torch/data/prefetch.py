@@ -13,7 +13,8 @@ Reading a batch (a 51 MB gather at full width, or 64 PNG decodes) and
 staging it are host work of tens of milliseconds, and so is dispatching a
 training step. So a thread reads, stages and starts the copies while the
 caller dispatches steps; numpy's copies and the decoders release the
-interpreter lock. The batches come out in the loader's order.
+interpreter lock. The batches come out in the loader's order; the
+caller's wait for the next one is the span "prefetch_wait".
 
 A packed-cache batch is a fancy-indexed copy of a read-only memmap; numpy
 arrays are copied INTO the pinned buffer (np.copyto on the buffer's numpy
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from yogo_tpu_torch.parallel.mesh import Batch, pad_batch_to_multiple, pad_batch_to_size  # noqa: F401
+from yogo_tpu_torch.utils.tracing import span
 
 
 def stack_group(group: List[Batch], accumulate: int) -> Batch:
@@ -113,7 +115,8 @@ def _in_background(items: Iterator, depth: int) -> Iterator:
     worker.start()
     try:
         while True:
-            item = handoff.get()
+            with span("prefetch_wait"):
+                item = handoff.get()
             if item is done:
                 return
             if isinstance(item, BaseException):

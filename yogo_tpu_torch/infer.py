@@ -77,6 +77,7 @@ from yogo_tpu_torch.parallel.distributed import (
 from yogo_tpu_torch.parallel.mesh import as_device, device_grid, replicate
 from yogo_tpu_torch.parallel.spatial import RowSplit
 from yogo_tpu_torch.utils.checkpoint import load_any
+from yogo_tpu_torch.utils.tracing import span
 from yogo_tpu_torch.utils.weights import state_dict_from_flax
 
 
@@ -191,10 +192,14 @@ class Predictor:
         return cls(model, stack, meta=meta, qp=qp, devices=devices, **thresholds)
 
     def to_device(self, imgs) -> torch.Tensor:
-        """(B, C, H, W) numpy or tensor -> tensor on the model's device."""
+        """(B, C, H, W) numpy or tensor -> tensor on the model's device (the
+        span "to_device" where a copy happens)."""
         if isinstance(imgs, np.ndarray):
             imgs = torch.from_numpy(imgs)
-        return imgs.to(self.device, non_blocking=True)
+        if imgs.device == self.device:
+            return imgs
+        with span("to_device"):
+            return imgs.to(self.device, non_blocking=True)
 
     def forward_raw(self, imgs) -> torch.Tensor:
         """(B, C, H, W) batch -> undecoded NHWC head (B, Sy, Sx, 5+C)."""
@@ -217,22 +222,24 @@ class Predictor:
         return self.model.apply(self.stack, self.to_device(imgs), inference=True)
 
     def count(self, raw: torch.Tensor, image_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Head -> (C,) per-class detection counts, on the device."""
+        """Head -> (C,) per-class detection counts, on the device (the span
+        "count", with the stream time of the head's device)."""
         m = self.model
-        if image_mask is not None:
-            image_mask = image_mask.to(raw.device)
-        return count_class_predictions_raw(
-            raw,
-            m.anchor_w,
-            m.anchor_h,
-            width_multiplier=m.width_multiplier,
-            height_multiplier=m.height_multiplier,
-            obj_thresh=self.obj_thresh,
-            iou_thresh=self.iou_thresh,
-            min_class_confidence_threshold=self.min_class_confidence_threshold,
-            max_detections=self.max_detections,
-            image_mask=image_mask,
-        )
+        with span("count", raw.device):
+            if image_mask is not None:
+                image_mask = image_mask.to(raw.device)
+            return count_class_predictions_raw(
+                raw,
+                m.anchor_w,
+                m.anchor_h,
+                width_multiplier=m.width_multiplier,
+                height_multiplier=m.height_multiplier,
+                obj_thresh=self.obj_thresh,
+                iou_thresh=self.iou_thresh,
+                min_class_confidence_threshold=self.min_class_confidence_threshold,
+                max_detections=self.max_detections,
+                image_mask=image_mask,
+            )
 
     def candidates(self, raw: torch.Tensor, k: int):
         """Head -> the top-k cells of each image by objectness, decoded:

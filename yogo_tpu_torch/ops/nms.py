@@ -9,31 +9,21 @@ The device path keeps the JAX package's formulation:
      fixed point is exactly sequential greedy NMS.
 
 The iteration is a Python loop capped at K+1 rounds that stops when `keep`
-stops changing; each test costs one device->host sync (`LAST` records the
-rounds and syncs of the last call). Tie-breaking follows
-torch: stable sort, strictly-greater-than-threshold suppression.
+stops changing; each test costs one device->host sync (the counters
+`nms_calls`, `nms_rounds` and `nms_host_syncs` of utils/tracing.COUNTS add
+up the calls, keep updates and syncs).
+Tie-breaking follows torch: stable sort, strictly-greater-than-threshold
+suppression.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-
-@dataclass
-class NMSStats:
-    """What the fixed-point loop of the last call took: keep updates
-    (`rounds`) and device->host syncs (`host_syncs`, one per convergence
-    test)."""
-
-    rounds: int = 0
-    host_syncs: int = 0
-
-
-LAST = NMSStats()
+from yogo_tpu_torch.utils import tracing
 
 
 def nms_numpy(
@@ -79,7 +69,7 @@ def _greedy_keep_from_suppression(suppress: torch.Tensor) -> torch.Tensor:
             break
         prev, keep = keep, ~(suppress & keep.unsqueeze(-1)).any(dim=-2)
         it += 1
-    LAST.rounds, LAST.host_syncs = it + 1, syncs
+    tracing.add(nms_calls=1, nms_rounds=it + 1, nms_host_syncs=syncs)
     return keep
 
 

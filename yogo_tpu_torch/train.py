@@ -41,7 +41,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
-from torch.profiler import record_function
 
 from yogo_tpu_torch.data.definition import DatasetDefinition
 from yogo_tpu_torch.data.loader import DataLoader, get_dataloader
@@ -73,6 +72,7 @@ from yogo_tpu_torch.parallel.spatial import RowSplit
 from yogo_tpu_torch.utils.checkpoint import load_any, restore_opt_state, save_checkpoint
 from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
 from yogo_tpu_torch.utils.logging import RunLogger
+from yogo_tpu_torch.utils.tracing import span
 from yogo_tpu_torch.utils.weights import (
     flax_from_state_dict,
     optax_state_from_torch,
@@ -203,23 +203,37 @@ def make_train_step(
     BN takes its statistics over every shard's rows (and every rank's),
     the dropout masks are drawn once and applied on every shard, and the
     head's rows are gathered for the loss. "blocks" checkpoints one layer
-    over its shards, "full" the whole split forward."""
+    over its shards, "full" the whole split forward.
+
+    Under a profiler (utils/tracing.py) a call is the span "step", and its
+    phases the spans "step/forward" (flips, forward, loss) and
+    "step/backward", once a micro-batch, and "step/optimizer" (the clamp,
+    AdamW and the schedule), each with its device's stream time."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
     if accumulate < 1:
         raise ValueError(f"accumulate must be >= 1, got {accumulate}")
 
     def forward(stack, imgs, labels, img_mask, generator, n_images, batch_rows):
-        x = imgs.to(model.compute_dtype)
-        if augment:
-            x, labels = random_flips(generator, x, labels)
-        out = model.apply(
-            stack, x, train=True, tuning=tuning, generator=generator, remat=remat,
-            batch_rows=batch_rows, split=rows,
-        )
-        return yogo_loss(out, labels, image_mask=img_mask, n_images=n_images, **loss_kwargs)
+        with span("step/forward", imgs.device):
+            x = imgs.to(model.compute_dtype)
+            if augment:
+                x, labels = random_flips(generator, x, labels)
+            out = model.apply(
+                stack, x, train=True, tuning=tuning, generator=generator, remat=remat,
+                batch_rows=batch_rows, split=rows,
+            )
+            return yogo_loss(out, labels, image_mask=img_mask, n_images=n_images, **loss_kwargs)
+
+    def backward(loss, device):
+        with span("step/backward", device):
+            loss.backward()
 
     def step(state: TrainState, imgs, labels, img_mask, generator=None):
+        with span("step"):
+            return _step(state, imgs, labels, img_mask, generator)
+
+    def _step(state: TrainState, imgs, labels, img_mask, generator):
         stack = state.stack
         state.optimizer.zero_grad(set_to_none=True)
         rank, world = process_shard()
@@ -233,7 +247,7 @@ def make_train_step(
         with no_tf32(imgs.device):
             if accumulate == 1:
                 loss, comps = forward(stack, imgs, labels, img_mask, generator, counts, rows)
-                loss.backward()
+                backward(loss, imgs.device)
             else:
                 if imgs.shape[0] != accumulate:
                     raise ValueError(
@@ -249,7 +263,7 @@ def make_train_step(
                     # loss and gradient came back divided by max(count, 1):
                     # count * value recovers the sums (zero for all padding)
                     w = mm.float().sum() if n_j is None else n_j
-                    (w * loss).backward()
+                    backward(w * loss, imgs.device)
                     lsum = lsum + w * loss.detach()
                     csum = {k: csum[k] + w * comps[k].detach() for k in COMPONENTS}
                     wsum = wsum + w
@@ -266,8 +280,9 @@ def make_train_step(
                 # every rank returns the global batch's loss, as every JAX process does
                 total = all_reduce_sum(torch.stack([loss.detach(), *(comps[k].detach() for k in COMPONENTS)]))
                 loss, comps = total[0], dict(zip(COMPONENTS, total[1:]))
-        state.optimizer.step()
-        state.scheduler.step()
+        with span("step/optimizer", imgs.device):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         return state, loss.detach(), {k: comps[k].detach() for k in COMPONENTS}
 
@@ -692,7 +707,7 @@ class Trainer:
         for epoch in range(self._start_epoch, self.config["epochs"]):
             self.epoch = epoch
             self.train_dataloader.set_epoch(epoch)
-            with record_function("yogo/train_epoch"):
+            with span("train_epoch"):
                 interrupted = mid_epoch_stop = self._train_one_epoch(
                     epoch, commit_interval
                 )
@@ -700,7 +715,7 @@ class Trainer:
                 break
 
             if epoch % 4 == 0:
-                with record_function("yogo/validate"):
+                with span("validate"):
                     self._validate()
 
             # every-epoch latest.ckpt: the preemption-recovery anchor (the
@@ -718,7 +733,7 @@ class Trainer:
             if self.model_save_dir is not None and (
                 (epoch + 1) % ckpt_interval == 0 or is_last
             ):
-                with record_function("yogo/checkpoint"):
+                with span("checkpoint"):
                     self.checkpoint(
                         self.model_save_dir / "latest.ckpt",
                         model_name=self.logger.run_name or "recent_run_latest",
@@ -788,7 +803,7 @@ class Trainer:
 
         test_metrics = None
         if self.test_dataloader is not None:
-            with record_function("yogo/test"):
+            with span("test"):
                 test_metrics = self.test(
                     self.test_dataloader,
                     self.config,
