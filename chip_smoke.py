@@ -15,9 +15,14 @@ Phases (any failure exits non-zero):
      phase 8's smaller server; the B=64 timing batch, also phases 5, 7 and
      8's larger server) and at an odd shape, within 1 bf16 ulp (rtol 8e-3,
      atol 1e-2);
+     3b. the NMS kernel (nms_phase) against its plain version on the card
+     and on the CPU, bit for bit, at B=64 on the golden scene's heads at
+     K = 256 and 1,024 and at 1,024 with every slot valid; its time (CUDA
+     events) and that of the chain and loop it replaces;
   4. main path: `infer --count` through the port's Predictor on the
      golden scene (4 images of tests/test_golden_fullres.py's generator):
-     bf16 in both block layouts (the stem launch counters must move) within
+     bf16 in both block layouts (the stem launch counters must move, and
+     each count launch the NMS kernel once with no host sync) within
      +-2 detections per image of tests/goldens/detections_fullres_base.npz,
      and float32 with TF32 off within +-1;
   5. timing at B=64, 772x1032 (CUDA events around 20 back-to-back calls):
@@ -1393,6 +1398,74 @@ def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timi
     finally:
         tmp_ctx.cleanup()
     return out, launches
+
+
+NMS_KS = (256, 1024)  # infer --count's and the benchmark's K; validation's and metrics/'
+
+
+def nms_inputs(pred, raw, k, obj_thresh=None):
+    """The arguments format_preds_batched_raw hands to batched_nms on the
+    head `raw` at capacity k (boxes, scores, valid, iou_thresh, tiebreak),
+    taken from the call itself."""
+    from yogo_tpu_torch.ops import postprocess
+
+    got = []
+    orig = postprocess.batched_nms
+
+    def grab(boxes, scores, valid, iou, tiebreak=None):
+        got.append((boxes, scores, valid, iou, tiebreak))
+        return orig(boxes, scores, valid, iou, tiebreak=tiebreak)
+
+    m = pred.model
+    postprocess.batched_nms = grab
+    try:
+        postprocess.format_preds_batched_raw(
+            raw, m.anchor_w, m.anchor_h, width_multiplier=m.width_multiplier,
+            height_multiplier=m.height_multiplier,
+            obj_thresh=pred.obj_thresh if obj_thresh is None else obj_thresh,
+            iou_thresh=pred.iou_thresh, max_detections=k)
+    finally:
+        postprocess.batched_nms = orig
+    (args,) = got
+    return args
+
+
+def nms_phase(pred, raw):
+    """Phase 3b: the NMS kernel (csrc/nms.cu) against its plain version on
+    the card and on the CPU, at K = 256 and 1,024 on the B=64 golden-scene
+    head `raw` (the slots the count path hands to NMS), and at K = 1,024
+    with every slot valid (objectness threshold 0: the kernel's most work);
+    keep equal bit for bit. Timing: the kernel (CUDA events, 20
+    back-to-back launches, median of 30: where the wrapper's host time
+    exceeds the kernel's, that time; and the kernel's device time from
+    torch.profiler) and the chain and loop it replaces (the plain version
+    on the card, with its host syncs; the chain alone, device time)."""
+    from yogo_tpu_torch.ops import nms
+    from yogo_tpu_torch.utils.tracing import COUNTS
+
+    out = {}
+    cases = [(f"golden_k{k}", k, None) for k in NMS_KS] + [("dense_k1024", 1024, 0.0)]
+    for name, k, obj in cases:
+        boxes, scores, valid, iou, tb = nms_inputs(pred, raw, k, obj)
+        before = COUNTS["nms_kernel_launches"]
+        got = nms.batched_nms(boxes, scores, valid, iou, tiebreak=tb)
+        launches = COUNTS["nms_kernel_launches"] - before
+        want = nms.batched_nms_reference(boxes, scores, valid, iou, tiebreak=tb)
+        want_cpu = nms.batched_nms(*(t.cpu() for t in (boxes, scores, valid)), iou, tiebreak=tb.cpu())
+        if launches != 1 or not (torch.equal(got, want) and torch.equal(got.cpu(), want_cpu)):
+            raise AssertionError(f"nms {name}: launches {launches}, kernel keep differs from the plain "
+                                 f"version in {int((got != want).sum())} slots (card), "
+                                 f"{int((got.cpu() != want_cpu).sum())} (CPU)")
+        out[name] = {
+            "k": k, "valid": int(valid.sum()), "kept": int(got.sum()), "launches": launches,
+            "ms": cuda_ms(lambda: nms.batched_nms(boxes, scores, valid, iou, tiebreak=tb), 30),
+            "device_ms": forward_profile(
+                {name: lambda: nms.batched_nms(boxes, scores, valid, iou, tiebreak=tb)}, reps=20)[name]["device_ms"],
+            "plain_ms": cuda_ms(lambda: nms.batched_nms_reference(boxes, scores, valid, iou, tiebreak=tb), 10),
+            "chain_ms": cuda_ms(lambda: nms._suppression(boxes, scores, valid, iou, tiebreak=tb), 10),
+        }
+        log(f"nms {name}: " + json.dumps(out[name]))
+    return out
 
 
 def forward_profile(fns, reps=3, top=12):
@@ -3212,10 +3285,11 @@ def main() -> int:
     from yogo_tpu_torch.utils.tracing import COUNTS
 
     def nms_per_call(before: dict) -> tuple:
-        """(keep updates, host syncs) an NMS call since the COUNTS copy
-        `before`, a mean over the calls."""
+        """(keep updates, host syncs, kernel launches) an NMS call since the
+        COUNTS copy `before`, a mean over the calls."""
         n = max(COUNTS["nms_calls"] - before.get("nms_calls", 0), 1)
-        return tuple((COUNTS[k] - before.get(k, 0)) / n for k in ("nms_rounds", "nms_host_syncs"))
+        return tuple((COUNTS[k] - before.get(k, 0)) / n
+                     for k in ("nms_rounds", "nms_host_syncs", "nms_kernel_launches"))
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3289,6 +3363,10 @@ def main() -> int:
     report["max_abs_err"] = max_err
     del cases
 
+    # -------------------------------------------- 3b. NMS against its plain version
+    with torch.inference_mode():
+        report["nms"] = nms_phase(ref_pred, ref_pred.forward_raw(big))
+
     # ---------------------------------------------------------- 4. main path
     def per_image_counts(pred, raw):
         per = []
@@ -3306,17 +3384,21 @@ def main() -> int:
             CKPT, half=True, device=dev, channels_last=layout == "nhwc"
         )
         raw = pred.forward_raw(imgs4)
-        per, classes, (rounds, syncs) = per_image_counts(pred, raw)
+        per, classes, (rounds, syncs, nms_launches) = per_image_counts(pred, raw)
         if not torch.isfinite(raw.float()).all() or raw.shape != (n_img, 97, 129, 7):
             raise AssertionError(f"bf16 {layout}: bad head {raw.shape}")
         log(f"bf16 {layout}: per-image {per} (golden {want_per_image}), "
             f"per-class {classes.tolist()} (golden {want_classes.tolist()}), "
-            f"NMS rounds {rounds}, host syncs {syncs}")
+            f"NMS rounds {rounds}, host syncs {syncs}, kernel launches {nms_launches}")
         if any(abs(a - b) > 2 for a, b in zip(per, want_per_image)):
             raise AssertionError(f"bf16 {layout} counts {per} vs golden {want_per_image}")
+        if nms_launches != 1.0 or syncs != 0 or rounds != 0:
+            raise AssertionError(f"bf16 {layout}: the count's NMS made {nms_launches} kernel launches, "
+                                 f"{syncs} host syncs and {rounds} loop rounds a call, not 1, 0 and 0")
         report[f"bf16_{layout}"] = {"per_image": per, "per_class": classes.tolist(),
                                     "nms_rounds": rounds,
-                                    "nms_host_syncs": syncs}
+                                    "nms_host_syncs": syncs,
+                                    "nms_kernel_launches": nms_launches}
         preds[layout] = pred
     launches = dict(LAUNCHES)
     log(f"stem launches on the main path: {launches}")
@@ -3384,8 +3466,12 @@ def main() -> int:
                 "forward_raw_ms": cuda_ms(lambda: model.apply(stack, x_nchw, decode=False), 10),
                 "count_ms": cuda_ms(lambda: pred.count(raw, mask), 10),
             }
-            rounds, syncs = nms_per_call(before)
-            stages[layout].update(nms_rounds_b64=rounds, nms_host_syncs_b64=syncs)
+            rounds, syncs, nms_launches = nms_per_call(before)
+            if nms_launches != 1.0 or syncs != 0:
+                raise AssertionError(f"B=64 {layout} count: {nms_launches} NMS kernel launches and "
+                                     f"{syncs} host syncs a call, not 1 and 0")
+            stages[layout].update(nms_rounds_b64=rounds, nms_host_syncs_b64=syncs,
+                                  nms_kernel_launches_b64=nms_launches)
 
         # the bf16 count path, batch by batch (host clock, synchronized):
         # from host uint8 batches (what predict() does) and from a batch
@@ -3572,6 +3658,18 @@ def main() -> int:
         "by_convnext_site": {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms", "int_mm_ms",
                                                            "bound_ms", "bound_by", "bound_share") if key in v}
                              for k, v in report["convnext"]["int8"]["sites"].items()},
+    })
+    rows.append({
+        "name": "nms",
+        "route": "cuda",
+        "source": "yogo_tpu_torch/csrc/nms.cu",
+        # the XLA while_loop of the JAX package's greedy NMS (no Pallas kernel)
+        "replaces": "yogo_tpu/ops/nms.py:68-89",
+        # phase 4: a Predictor.count on the main path (checked there: 1 a
+        # call, no host sync), and phase 5's at B=64
+        "launches": report["bf16_nhwc"]["nms_kernel_launches"],
+        "launches_count_path_b64": report["timing"]["stages"]["nhwc"]["nms_kernel_launches_b64"],
+        "by_case": report["nms"],
     })
     report["kernels"] = rows
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

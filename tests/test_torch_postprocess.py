@@ -131,6 +131,52 @@ def test_counts_equal_host_formatter_on_decoded_preds():
     np.testing.assert_array_equal(dev.numpy(), host)
 
 
+def _decoded(raw: np.ndarray) -> torch.Tensor:
+    """(B, 5+C, Sy, Sx) decoded grid of a raw head, as the model's decode."""
+    traw = torch.from_numpy(raw)
+    b, sy, sx, _ = raw.shape
+    cx = (torch.sigmoid(traw[..., 0]) + torch.arange(sx)) / sx
+    cy = (torch.sigmoid(traw[..., 1]) + torch.arange(sy)[:, None]) / sy
+    w = ANCHORS["anchor_w"] * torch.exp(traw[..., 2]) * ANCHORS["width_multiplier"]
+    h = ANCHORS["anchor_h"] * torch.exp(traw[..., 3]) * ANCHORS["height_multiplier"]
+    return torch.cat([torch.stack([cx, cy, w, h, torch.sigmoid(traw[..., 4])], -1),
+                      torch.softmax(traw[..., 5:], -1)], -1).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_decoded_formatter_hands_nms_float32_whatever_the_dtype(dtype, monkeypatch):
+    """format_preds_batched on a bf16 / f16 decoded grid resolves NMS on the
+    float32 widening of its boxes and scores (what the card's kernel takes),
+    and its keep is that of batched_nms on those widened values."""
+    dec = _decoded(_raw_head(12)).to(getattr(torch, dtype))
+    seen = []
+    orig = tpost.batched_nms
+
+    def spy(boxes, scores, valid, iou, tiebreak=None):
+        seen.append((boxes, scores, valid, tiebreak))
+        return orig(boxes, scores, valid, iou, tiebreak=tiebreak)
+
+    monkeypatch.setattr(tpost, "batched_nms", spy)
+    f = tpost.format_preds_batched(dec, max_detections=64)
+    ((boxes, scores, valid, tb),) = seen
+    assert boxes.dtype == scores.dtype == torch.float32
+    assert f["boxes_xyxy"].dtype == f["class_probs"].dtype == getattr(torch, dtype)
+    torch.testing.assert_close(boxes, f["boxes_xyxy"].float(), rtol=0, atol=0)
+    assert torch.equal(f["valid"], valid & tnms.batched_nms_reference(boxes, scores, valid, 0.5, tb))
+    assert 0 < int(f["valid"].sum()) < int(valid.sum())  # NMS removed some, kept some
+    counts = tpost.count_class_predictions(dec, max_detections=64)
+    assert int(counts.sum()) == int(f["valid"].sum())
+
+
+def test_decoded_formatter_passes_the_kernel_s_checks_in_bf16():
+    """On a device with no CPU loop, a bf16 decoded grid reaches the
+    kernel's launch past its dtype and shape checks (the `meta` device has
+    no kernel, so the wrapper's last refusal is the one raised)."""
+    dec = torch.empty((2, 7, 12, 16), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no NMS kernel for device meta"):
+        tpost.count_class_predictions(dec, max_detections=64)
+
+
 def _quantized_scores(rng, n):
     return rng.integers(1, 21, n) / 20.0  # heavy duplication: stable tie-breaks
 

@@ -223,11 +223,13 @@ class Predictor:
 
     def count(self, raw: torch.Tensor, image_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Head -> (C,) per-class detection counts, on the device (the span
-        "count", with the stream time of the head's device)."""
+        "count", with the stream time of the head's device). Makes no
+        device-to-host sync on a CUDA head: the (B,) mask's copy is staged
+        without waiting for the stream, and NMS is one kernel."""
         m = self.model
         with span("count", raw.device):
             if image_mask is not None:
-                image_mask = image_mask.to(raw.device)
+                image_mask = image_mask.to(raw.device, non_blocking=True)
             return count_class_predictions_raw(
                 raw,
                 m.anchor_w,

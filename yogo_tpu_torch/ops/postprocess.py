@@ -213,6 +213,11 @@ def format_preds_batched(
     image_mask: optional (B,) bool marking real (non-padding) images, so a
     ragged final batch keeps the fixed batch shape.
 
+    NMS resolves in float32 whatever the dtype of `preds`: the boxes and
+    scores of a bf16 / f16 tensor are widened (exactly) before the IoU test,
+    on the CPU as on the card, so `valid` is the float32 IoU's answer on the
+    input's own values; the returned boxes and scores keep the input dtype.
+
     Capacity note: K = min(max_detections, cells). If more than K cells pass
     the objectness threshold the lowest-objectness survivors are dropped
     (the reference keeps all); which of several cells TIED at the cut
@@ -245,7 +250,8 @@ def format_preds_batched(
         scores = class_probs.amax(dim=-1) * objectness
         # ties between equal scores break by ORIGINAL cell index, like the
         # host path's stable sort over cell-ordered predictions
-        valid = valid & batched_nms(boxes_xyxy, scores, valid, iou_thresh, tiebreak=top_idx)
+        valid = valid & batched_nms(boxes_xyxy.float(), scores.float(), valid, iou_thresh,
+                                    tiebreak=top_idx)
 
     if min_class_confidence_threshold > 0:
         valid = valid & (class_probs.amax(dim=-1) > min_class_confidence_threshold)
@@ -275,7 +281,8 @@ def count_class_predictions(
     image_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-class counts of the detections of format_preds_batched:
-    (B, 5+C, Sy, Sx) decoded -> (C,) int64, left on the device."""
+    (B, 5+C, Sy, Sx) decoded, any float dtype (NMS in float32) -> (C,)
+    int64, left on the device."""
     return _count_valid_classes(
         format_preds_batched(
             preds,

@@ -20,9 +20,10 @@ records nothing, as the profiler records nothing there.
 bumps them under a lock, and while a profiler is active also the
 window's counters that `counts()` returns.
 
-    nms_calls       calls of the fixed-point NMS loop (ops/nms.py)
-    nms_rounds      keep updates in those calls
-    nms_host_syncs  device-to-host syncs in those calls (one a convergence test)
+    nms_calls            NMS resolves (ops/nms.py), on either path
+    nms_kernel_launches  those that launched csrc/nms.cu (CUDA tensors)
+    nms_rounds           keep updates of the fixed-point loop (the plain version)
+    nms_host_syncs       device-to-host syncs of that loop (one a convergence test)
 """
 
 from __future__ import annotations
