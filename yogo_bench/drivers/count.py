@@ -19,7 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from yogo_bench import ckpt, reference, scene, weights
+from yogo_bench import ckpt, manifest, reference, scene, weights
 from yogo_bench.trace import span
 
 # the program's API, used as a caller of the port would
@@ -31,12 +31,22 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def bench_weights(cfg: dict, device) -> dict:
     """The configuration's weights as the benchmark holds them: {torch
-    name: float32 tensor on `device`}."""
+    name: float32 tensor on `device`}: its checkpoint, or its family's
+    initial state from `weights_seed`, with the head set for production
+    density where the configuration states one."""
     if cfg.get("checkpoint"):
         _, variables = ckpt.read(cfg["checkpoint"])
         return {k: torch.from_numpy(v).to(device) for k, v in ckpt.torch_weights(variables).items()}
-    w = weights.make(weights.convnext_spec(cfg), cfg["weights_seed"], device)
-    return weights.production_density(w, cfg)
+    w = weights.make(manifest.family(cfg["family"]).spec(cfg), cfg["weights_seed"], device)
+    return weights.production_density(w, cfg) if "production_density" in cfg else w
+
+
+def load_weights(stack: torch.nn.Module, w: dict) -> None:
+    """The benchmark's weights into the program's module, strictly; a BN's
+    `num_batches_tracked`, which no reference reads, starts at 0."""
+    extra = {k: torch.zeros((), dtype=torch.long) for k in stack.state_dict()
+             if k.endswith("num_batches_tracked") and k not in w}
+    stack.load_state_dict({**w, **extra}, strict=True)
 
 
 def build_predictor(cfg: dict, w: dict, device, quantize: bool = False, calib=(), **thresholds) -> Predictor:
@@ -52,7 +62,7 @@ def build_predictor(cfg: dict, w: dict, device, quantize: bool = False, calib=()
     model = YOGO.create(tuple(cfg["img_size"]), cfg["anchor_w"], cfg["anchor_h"], cfg["num_classes"],
                         model_version=cfg["architecture"], compute_dtype=dtype)
     stack = model.module(device)
-    stack.load_state_dict(w, strict=True)
+    load_weights(stack, w)
     qp = quantize_stack(model, stack, list(calib)) if quantize else None
     return Predictor(model, stack, qp=qp, **thresholds)
 

@@ -27,8 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yogo_bench import reference, scene, weights
-from yogo_bench.drivers.count import DTYPES
+from yogo_bench import manifest, reference, scene, weights
+from yogo_bench.drivers.count import DTYPES, load_weights
 from yogo_bench.trace import span
 
 from yogo_tpu_torch.data.prefetch import prefetch_to_device
@@ -73,10 +73,9 @@ class Session:
         self.batch = mix["batch"]
         model = YOGO.create(tuple(cfg["img_size"]), cfg["anchor_w"], cfg["anchor_h"], cfg["num_classes"],
                             model_version=cfg["architecture"], compute_dtype=DTYPES[cfg["compute_dtype"]])
-        w = weights.make(weights.conv_stack_spec(cfg), step_seed(seed, 2 ** 32), self.device)
+        w = weights.make(manifest.family(cfg["family"]).spec(cfg), step_seed(seed, 2 ** 32), self.device)
         stack = model.module(self.device, channels_last=cfg["channels_last"])
-        extra = {k: torch.zeros((), dtype=torch.long) for k in stack.state_dict() if k.endswith("num_batches_tracked")}
-        stack.load_state_dict({**w, **extra}, strict=True)
+        load_weights(stack, w)
         self.w0 = {k: v.cpu() for k, v in w.items()}
         del w
         opt, sched, _ = make_optimizer(stack.parameters(), mix["learning_rate"], mix["weight_decay"],

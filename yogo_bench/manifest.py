@@ -1,13 +1,22 @@
 """BENCHMARK.json and the files the harness finds by name in it.
 
-  configs/<config>.json   a configuration, named by its `file` entry
+  configs/<config>.json   a configuration, named by its `file` entry; its
+                          "family" names families/<family>.py
+  families/<family>.py    a model family: spec, forward (the plain
+                          reference), grid, macs_per_image
   traffic/<mix>.json      a traffic mix; its "driver" names drivers/<driver>.py
   limits/<cell>.json      the cell's checks: {"checks": {name: limit}, ...}
-  metrics/<metric>.py     a per-layer metric's reader, `read(ctx)`
+  metrics/<metric>.py     a per-layer metric's reader, `read(ctx)`; the
+                          program_span and program_counter readers read
+                          yogo_tpu_torch/utils/tracing.py's window record
+                          through program.py
 
 A later change adds a configuration, mix, cell or metric by adding files
-and entries; no file here needs an edit for it. `validate` holds a manifest
-to the benchmark's contract (names, units, keys, sizes, references).
+and entries; no file here needs an edit for it. A configuration of a new
+architecture adds families/<family>.py beside its config, its limits file
+and its entries. `validate` holds a manifest to the benchmark's contract
+(names, units, keys, sizes, references, a family module for each
+configuration).
 """
 
 from __future__ import annotations
@@ -73,6 +82,11 @@ def limits(workload: str) -> dict:
 
 def driver(mix: dict) -> ModuleType:
     return importlib.import_module(f"yogo_bench.drivers.{mix['driver']}")
+
+
+def family(name: str) -> ModuleType:
+    """families/<name>.py: a model family's spec, forward, grid and MACs."""
+    return importlib.import_module(f"yogo_bench.families.{name}")
 
 
 def _for(metric: dict, workload: str) -> bool:
@@ -148,6 +162,11 @@ def validate(man: dict, root: Path = ROOT) -> List[str]:
         if not any(f.startswith(x.rstrip("/") + "/") for x in paths) or f in files or not (root / f).exists():
             p.append(f"config {c['name']}: file {f!r} not a file of its own under paths")
         files.add(f)
+        if (root / f).is_file():
+            fam = json.loads((root / f).read_text()).get("family")
+            if not (isinstance(fam, str) and fam.isidentifier()
+                    and (root / HERE.name / "families" / f"{fam}.py").is_file()):
+                p.append(f"config {c['name']}: family {fam!r} has no families/<family>.py")
         if len(c.get("reduced", [])) > 16 or any(not NAME.match(k) for k in c.get("reduced", [])):
             p.append(f"config {c['name']}: reduced")
     pairs, four = set(), 0

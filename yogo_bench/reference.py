@@ -1,10 +1,11 @@
-"""The plain reference: YOGO's forward passes, decode, NMS and count, loss
-and AdamW step, in plain PyTorch, float32 with TF32 off, written from the
-published descriptions (czbiohub-sf/yogo: yogo/model.py, model_defns.py,
-yogo_loss.py, utils/prediction_formatting.py; ConvNeXt: Liu et al. 2022,
-through timm). It imports nothing of the program and takes nothing it made:
-weights come from the benchmark (weights.py, ckpt.py), and the BN of a
-conv stack is applied as a BN, not folded.
+"""The plain reference: YOGO's decode, NMS and count, loss and AdamW
+step, in plain PyTorch, float32 with TF32 off, written from the published
+descriptions (czbiohub-sf/yogo: yogo/model.py, yogo_loss.py,
+utils/prediction_formatting.py). Each family's forward pass is in
+families/<family>.py, found by the configuration's `family`
+(manifest.family); `grid`, `head` and `train_steps` dispatch through it.
+It imports nothing of the program and takes nothing it made: weights come
+from the benchmark (weights.py, ckpt.py).
 
 `cast` is the precision of the convs' and Dense layers' operands: the
 identity for float32, `fp8` for the control that computes them in
@@ -21,8 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-LEAKY_SLOPE = 0.01
-BN_EPS = 1e-5
+from yogo_bench import manifest
+
 WH_CLAMP = 80.0
 FP8_MAX = 448.0
 
@@ -55,83 +56,13 @@ def exact():
 
 def grid(cfg: dict) -> Tuple[int, int]:
     """(Sx, Sy) of the configuration's head."""
-    h, w = cfg["img_size"]
-    if cfg["family"] == "convnext":
-        h, w = h // cfg["patch"], w // cfg["patch"]
-        for _ in cfg["depths"][1:]:
-            h, w = (h - 2) // 2 + 1, (w - 2) // 2 + 1
-        return 4 * w, 4 * h
-    for b in cfg["blocks"]:
-        h = (h + 2 * b["padding"] - b["kernel"]) // b["stride"] + 1
-        w = (w + 2 * b["padding"] - b["kernel"]) // b["stride"] + 1
-    return w, h
-
-
-# ------------------------------------------------------------------ forwards
-
-
-def conv_stack(w: Dict[str, torch.Tensor], x: torch.Tensor, cfg: dict, *, train: bool = False,
-               masks: Optional[Dict[int, torch.Tensor]] = None, cast: Cast = f32) -> torch.Tensor:
-    """(B, 1, H, W) float32 pixels -> (B, Sy, Sx, 5+C) head. train=True
-    normalises BN with the batch's statistics (biased variance) and
-    applies the channel-dropout masks {block: (B, C, 1, 1)}."""
-    for i, b in enumerate(cfg["blocks"]):
-        bias = w.get(f"conv{i}.bias")
-        x = F.conv2d(cast(x), cast(w[f"conv{i}.weight"]), bias, b["stride"], b["padding"])
-        if b["bn"]:
-            if train:
-                mean, var = x.mean((0, 2, 3)), x.var((0, 2, 3), unbiased=False)
-            else:
-                mean, var = w[f"bn{i}.running_mean"], w[f"bn{i}.running_var"]
-            scale = w[f"bn{i}.weight"] / torch.sqrt(var + BN_EPS)
-            x = (x - mean[:, None, None]) * scale[:, None, None] + w[f"bn{i}.bias"][:, None, None]
-        if b["act"] == "leaky_relu":
-            x = F.leaky_relu(x, LEAKY_SLOPE)
-        elif b["act"] is not None:
-            raise ValueError(f"unknown activation {b['act']}")
-        if train and masks and i in masks:
-            x = x * masks[i]
-    return x.permute(0, 2, 3, 1)
-
-
-def _ln(x: torch.Tensor, w: Dict[str, torch.Tensor], name: str, eps: float) -> torch.Tensor:
-    return F.layer_norm(x, x.shape[-1:], w[f"{name}.weight"], w[f"{name}.bias"], eps)
-
-
-def _conv_nhwc(x, w, name, stride, cast, padding=0, groups=1):
-    y = F.conv2d(cast(x.permute(0, 3, 1, 2)), cast(w[f"{name}.weight"]), w[f"{name}.bias"],
-                 stride, padding, 1, groups)
-    return y.permute(0, 2, 3, 1)
-
-
-def convnext(w: Dict[str, torch.Tensor], x: torch.Tensor, cfg: dict, cast: Cast = f32) -> torch.Tensor:
-    """(B, 1, H, W) float32 pixels -> (B, Sy, Sx, 5+C) head: patchify
-    stem + LayerNorm, four stages of blocks (7x7 depthwise conv, LayerNorm,
-    Dense 4x, exact GELU, Dense back, layer scale, residual) with LayerNorm
-    + 2x2 stride-2 conv between them, a 1x1 conv to 5+C and a 4x4 stride-4
-    transpose conv."""
-    eps, k = cfg["ln_eps"], cfg["dw_kernel"]
-    h = F.conv2d(cast(x), cast(w["stem_conv.weight"]), w["stem_conv.bias"], cfg["patch"])
-    h = _ln(h.permute(0, 2, 3, 1), w, "stem_norm", eps)
-    for s, depth in enumerate(cfg["depths"]):
-        if s > 0:
-            h = _conv_nhwc(_ln(h, w, f"down{s}_norm", eps), w, f"down{s}_conv", 2, cast)
-        for b in range(depth):
-            p = f"stage{s}_block{b}"
-            y = _conv_nhwc(h, w, f"{p}.dwconv", 1, cast, padding=k // 2, groups=h.shape[-1])
-            y = _ln(y, w, f"{p}.norm", eps)
-            y = F.gelu(F.linear(cast(y), cast(w[f"{p}.pwconv1.weight"]), w[f"{p}.pwconv1.bias"]))
-            y = F.linear(cast(y), cast(w[f"{p}.pwconv2.weight"]), w[f"{p}.pwconv2.bias"])
-            h = h + w[f"{p}.gamma"] * y
-    y = F.conv2d(cast(h.permute(0, 3, 1, 2)), cast(w["format_conv.weight"]), w["format_conv.bias"])
-    y = F.conv_transpose2d(cast(y), cast(w["format_up.weight"]), w["format_up.bias"], 4)
-    return y.permute(0, 2, 3, 1)
+    return manifest.family(cfg["family"]).grid(cfg)
 
 
 def head(w, frames: torch.Tensor, cfg: dict, cast: Cast = f32, block: int = 8) -> torch.Tensor:
     """The (B, Sy, Sx, 5+C) float32 head of uint8 frames (B, 1, H, W) on
     w's device, `block` images at a time, without autograd."""
-    fwd = convnext if cfg["family"] == "convnext" else conv_stack
+    fwd = manifest.family(cfg["family"]).forward
     dev = next(iter(w.values())).device
     out = []
     with torch.no_grad(), exact():
@@ -317,6 +248,7 @@ def train_steps(w0: Dict[str, torch.Tensor], batches, cfg: dict, job: dict, cast
         m = {k: moments[0][k].detach().to(dev, torch.float32).clone() for k in params}
         v2 = {k: moments[1][k].detach().to(dev, torch.float32).clone() for k in params}
     fixed = {k: v for k, v in w0.items() if "running" in k}
+    fwd = manifest.family(cfg["family"]).forward
     losses, first_grad, after = [], None, []
     b1, b2, eps = 0.9, 0.999, 1e-8
     with exact():
@@ -329,7 +261,7 @@ def train_steps(w0: Dict[str, torch.Tensor], batches, cfg: dict, job: dict, cast
             if half_batch:
                 n = x.shape[0] // 2
                 x, y, masks = x[:n], y[:n], {i: mk[:n] for i, mk in masks.items()}
-            lval = loss(conv_stack({**params, **fixed}, x, cfg, train=True, masks=masks, cast=cast), y, cfg, job)
+            lval = loss(fwd({**params, **fixed}, x, cfg, train=True, masks=masks, cast=cast), y, cfg, job)
             grads = torch.autograd.grad(lval, list(params.values()))
             lr = lr_at(job, t - 1)
             with torch.no_grad():

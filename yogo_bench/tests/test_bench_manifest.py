@@ -41,6 +41,16 @@ def test_end_to_end_bounds_and_sources(key, value):
     assert manifest.validate(man)
 
 
+def test_a_configuration_of_an_unknown_family_is_refused(tmp_path):
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "configs/odd.json").write_text(json.dumps({**manifest.config(MAN, "base_model"), "family": "odd"}))
+    man = json.loads(json.dumps(MAN))
+    man["configs"][0]["file"] = str(tmp_path / "configs/odd.json")
+    problems = manifest.validate(man)
+    assert any("family 'odd'" in p for p in problems), problems
+    assert manifest.validate(MAN) == []
+
+
 def test_an_extra_key_is_refused():
     man = json.loads(json.dumps(MAN))
     man["per_layer"][0]["why"] = "no"
@@ -72,7 +82,9 @@ def test_counters_reproduce_the_published_totals():
 
 def test_a_later_change_adds_pieces_as_new_files(tmp_path):
     """A copy of the benchmark gains a configuration, a mix, a cell and a
-    per-layer metric by new files and entries alone; no file there is
+    per-layer metric by new files and entries alone, and a configuration
+    of a new family (families/toy_stack.py, which delegates to the conv
+    stack) whose cell runs correct at a small size; no file there is
     edited, and the harness finds each by name."""
     root = tmp_path / "checkout"
     shutil.copytree(manifest.HERE, root / "yogo_bench", ignore=shutil.ignore_patterns("__pycache__"))
@@ -85,16 +97,26 @@ def test_a_later_change_adds_pieces_as_new_files(tmp_path):
     (root / "yogo_bench/limits/dummy.count_b8.json").write_text(json.dumps(manifest.limits("base_model.count")))
     (root / "yogo_bench/metrics/launches.count.py").write_text(
         "def read(ctx):\n    return float(sum(n for n, _ in ctx['trace']['kernels'].values()))\n")
+    (root / "yogo_bench/families/toy_stack.py").write_text(
+        '"""A family that is the conv stack under another name."""\n'
+        "from yogo_bench.families.conv_stack import forward, grid, macs_per_image, spec  # noqa: F401\n")
+    toy = {k: v for k, v in manifest.config(MAN, "base_model").items() if not k.startswith("checkpoint")}
+    (root / "yogo_bench/configs/toy.json").write_text(json.dumps(
+        {**toy, "name": "toy", "family": "toy_stack", "architecture": "base_model", "weights_seed": 0}))
+    (root / "yogo_bench/limits/toy.count.json").write_text(json.dumps(manifest.limits("base_model.count")))
     man["configs"].append({"name": "dummy", "source": "https://example.org/dummy",
                            "file": "yogo_bench/configs/dummy.json", "reduced": [], "why": "a test"})
+    man["configs"].append({"name": "toy", "source": "https://example.org/toy",
+                           "file": "yogo_bench/configs/toy.json", "reduced": [], "why": "a test"})
     man["workloads"].append({"name": "dummy.count_b8", "config": "dummy", "traffic": "count_b8", "chips": 1,
                              "why": "a test"})
+    man["workloads"].append({"name": "toy.count", "config": "toy", "traffic": "count", "chips": 1, "why": "a test"})
     man["per_layer"].append({"name": "launches.count", "unit": "launches", "better": "lower",
                              "source": "device_trace", "layer": "device", "moves": "count_images_per_s",
-                             "workloads": ["dummy.count_b8"]})
+                             "workloads": ["dummy.count_b8", "toy.count"]})
     for m in man["end_to_end"]:
         if m["name"] == "count_images_per_s":
-            m["workloads"].append("dummy.count_b8")
+            m["workloads"] += ["dummy.count_b8", "toy.count"]
     (root / "BENCHMARK.json").write_text(json.dumps(man))
     assert manifest.validate(man, root) == []
     code = (
@@ -109,5 +131,20 @@ def test_a_later_change_adds_pieces_as_new_files(tmp_path):
     assert json.loads(out.stdout) == ["dummy", 8, ["count_gap", "head_rel_rms"], 3.0, "yogo_bench.drivers.count"]
     assert str(root) in subprocess.run([sys.executable, "-c", "import yogo_bench; print(yogo_bench.__file__)"],
                                        cwd=root, env=env, capture_output=True, text=True).stdout
+    code = (
+        "import json, time; from yogo_bench import flops, manifest as m, reference, run; man = m.load();"
+        "c = m.config(man, 'toy');"
+        "rs = {'config': {'img_size': [96, 128], 'compute_dtype': 'float32'},"
+        "      'traffic': {'batch': 2, 'pool': 4, 'blobs': [2, 5], 'warmup_batches': 1}};"
+        "r = run.run_cell(man, 'toy.count', 98765432101, 0.5, False, 'cpu', start=time.perf_counter(), resize=rs);"
+        "print(json.dumps([m.family(c['family']).__file__, flops.macs_per_image(c), reference.grid(c),"
+        "                  r['correct'], r['attempted'], r['checks']]))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr[-2000:]
+    path, macs, grid, correct, attempted, checks = json.loads(out.stdout.splitlines()[-1])
+    assert path == str(root / "yogo_bench/families/toy_stack.py")
+    assert (macs, grid) == (flops.macs_per_image(manifest.config(MAN, "base_model")), [129, 97])
+    assert correct and attempted > 0, checks
     after = {p: p.read_bytes() for p in before}
     assert after == before

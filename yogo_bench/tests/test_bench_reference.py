@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from yogo_bench import ckpt, manifest, reference, scene, weights
+from yogo_bench.families import convnext
 from yogo_bench.tests import small
 
 from yogo_tpu_torch.losses import yogo_loss
@@ -40,7 +41,7 @@ def test_conv_stack_forward_matches_the_port():
 
 def test_convnext_forward_matches_the_port():
     cfg = {**manifest.config(MAN, "convnext_small"), "img_size": [96, 128]}
-    w = weights.production_density(weights.make(weights.convnext_spec(cfg), 0, "cpu"), cfg)
+    w = weights.production_density(weights.make(convnext.spec(cfg), 0, "cpu"), cfg)
     model = port_model(cfg)
     stack = model.module("cpu")
     stack.load_state_dict(w)
