@@ -31,10 +31,10 @@ from tests.test_golden_fullres_int8 import (
     GOLDEN_PATH,
     greedy_iou_match,
 )
+from yogo_tpu.models.defns import MODELS
 from yogo_tpu.models.yogo import YOGO as JYOGO
 from yogo_tpu.ops import quant as jq
 from yogo_tpu_torch.infer import Predictor, predict
-from yogo_tpu_torch.models.defns import MODELS
 from yogo_tpu_torch.models.yogo import YOGO
 from yogo_tpu_torch.ops import quant as tq
 from yogo_tpu_torch.ops.postprocess import format_preds
@@ -42,7 +42,7 @@ from yogo_tpu_torch.tools.golden_scene import int8_gates
 from yogo_tpu_torch.utils.checkpoint import load_any
 from yogo_tpu_torch.utils.weights import flax_from_state_dict, quant_params_from_jax, state_dict_from_flax
 
-ARCHS = [n for n in MODELS if n != "convnext_small"]
+ARCHS = [n for n in MODELS if n != "convnext_small"]  # the JAX package's conv stacks
 HW = (48, 64)
 CALIB_RTOL = 3e-5
 

@@ -1,0 +1,15 @@
+"""Stream time a batch of the program's spans "swin/layout" (models/yogo.py
+SwinBlock: pad, roll and window partition before the qkv Dense; window
+reverse, unroll and crop after the projection; two spans a block), ms:
+each span from a CUDA event on the block's stream at its entry to one at
+its exit, summed over the window and divided by the window's batches.
+From the program's record (yogo_bench/program.py); None where it has
+nothing for it."""
+
+from yogo_bench.program import _tracing
+
+
+def read(ctx):
+    tracing, n = _tracing(), ctx["counters"]["batches"]
+    s = tracing.stats().get("swin/layout") if tracing else None
+    return 1e3 * s["stream_s"] / n if s and s["stream_s"] and n else None

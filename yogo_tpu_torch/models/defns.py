@@ -1,10 +1,12 @@
-"""Declarative backbone registry (copy of yogo_tpu/models/defns.py).
+"""Declarative backbone registry (copy of yogo_tpu/models/defns.py, plus
+`swin_small`, which only the port has).
 
 The reference defines 12 architectures as hand-written torch nn.Sequential
 stacks (reference: yogo/model_defns.py:30-558). Here each architecture is a
 *data* description - a tuple of ConvSpec - consumed by one nn.Module
 (models.yogo.ConvStack), and grid-size arithmetic (ops.grid.grid_size) folds
-over the same specs the model runs.
+over the same specs the model runs. The convnext and swin families run
+modules of their own; their specs carry only the grid arithmetic.
 
 Registry semantics match the reference exactly: ``get_model_defn(None)`` and
 unknown names fall back to base_model (reference: yogo/model_defns.py:11-18).
@@ -62,8 +64,8 @@ def temporary_model(builder: DefnBuilder) -> Iterator[DefnBuilder]:
     """Scoped registration for experiment-only architectures (e.g. the
     zero-dropout head-to-head variant): the builder is visible to
     get_model_defn inside the block and guaranteed gone afterwards, so the
-    process-wide registry always ends with exactly the reference's 12
-    models regardless of tool/test import order."""
+    process-wide registry always ends with exactly the registered models
+    regardless of tool/test import order."""
     name = builder.__name__
     prev = MODELS.get(name)
     MODELS[name] = builder
@@ -260,5 +262,32 @@ def convnext_small(num_classes: int, rgb_input: bool = False) -> ModelDefn:
                 act=None,
                 transpose=True,
             ),
+        ),
+    )
+
+
+@register_model
+def swin_small(num_classes: int, rgb_input: bool = False) -> ModelDefn:
+    """Swin-S (arXiv:2103.14030; timm's swin_small_patch4_window7_224) as
+    the trunk, the padded detection backbone of
+    Swin-Transformer-Object-Detection, with ConvNeXt's 1x1 head and stride-4
+    transpose upsample (models.yogo.SwinSmall). As for convnext_small the
+    spec carries only the grid arithmetic: the 4x4 stride-4 patch
+    embedding, three patch merges and the head.
+    """
+    return ModelDefn(
+        name="swin_small",
+        family="swin",
+        blocks=(
+            # patch embedding: 4x4 stride-4 conv
+            ConvSpec(96, kernel=4, stride=4, padding=0, act=None),
+            # patch merging pads an odd side by one and takes 2x2 patches:
+            # ceil(h / 2), which a kernel-1 stride-2 conv's
+            # floor((h - 1) / 2) + 1 equals
+            ConvSpec(192, kernel=1, stride=2, padding=0, act=None),
+            ConvSpec(384, kernel=1, stride=2, padding=0, act=None),
+            ConvSpec(768, kernel=1, stride=2, padding=0, act=None),
+            ConvSpec(5 + num_classes, kernel=1, padding=0, act=None),
+            ConvSpec(5 + num_classes, kernel=4, stride=4, padding=0, act=None, transpose=True),
         ),
     )

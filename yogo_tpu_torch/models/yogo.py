@@ -15,6 +15,10 @@
     of the JAX package, flax parameter names), its residual stream in
     NHWC float32 whatever the compute dtype, with flax's LayerNorm
     (`layer_norm`);
+  - `SwinSmall` / `SwinBlock` / `SwinMerge`: the swin family, which only
+    the port has (Swin-S as its padded detection backbone runs it), NHWC
+    with a float32 residual stream, window attention through
+    scaled_dot_product_attention;
   - `decode_predictions`: the YOLO9000 direct-location decode.
 
 Block 0 of a canonical conv stack runs as the fused CUDA stem kernel
@@ -46,12 +50,19 @@ from yogo_tpu_torch.models.defns import ConvSpec, ModelDefn, get_model_defn
 from yogo_tpu_torch.ops.grid import WH_CLAMP, cell_offsets, grid_size
 from yogo_tpu_torch.ops.stem import STEM_CHANNELS, fold_stem_params, fused_stem_nchw
 from yogo_tpu_torch.parallel.distributed import all_reduce_sum_autograd, world_size
+from yogo_tpu_torch.utils import tracing
 
 LEAKY_SLOPE = 0.01
 REMAT_MODES = ("none", "blocks", "full")
 LN_EPS = 1e-6
 CONVNEXT_DEPTHS = (3, 3, 27, 3)
 CONVNEXT_DIMS = (96, 192, 384, 768)
+SWIN_DEPTHS = (2, 2, 18, 2)
+SWIN_DIMS = (96, 192, 384, 768)
+SWIN_HEADS = (3, 6, 12, 24)
+SWIN_WINDOW = 7
+SWIN_LN_EPS = 1e-5
+SWIN_MASK = -100.0  # the shift mask's additive logit between regions
 
 
 def resolve_device(device=None) -> torch.device:
@@ -333,13 +344,14 @@ class LayerNorm(nn.Module):
     are weight / bias); the forward is `layer_norm`, the parameters taken
     to x's device."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = LN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight.to(x.device), self.bias.to(x.device))
+        return layer_norm(x, self.weight.to(x.device), self.bias.to(x.device), self.eps)
 
 
 def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -355,7 +367,18 @@ def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Te
 
 def _linear(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax nn.Dense(dtype=dtype) over the last axis."""
-    return F.linear(x.to(dtype), fc.weight.to(x.device, dtype), fc.bias.to(x.device, dtype))
+    bias = fc.bias.to(x.device, dtype) if fc.bias is not None else None
+    return F.linear(x.to(dtype), fc.weight.to(x.device, dtype), bias)
+
+
+def format_head(net: nn.Module, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """YOGO's head on a trunk's NHWC output: `net`'s 1x1 format conv and
+    stride-4 transpose upsample (both row-local) -> the head's NHWC rows in
+    `dtype`."""
+    h = _conv_nhwc(h, net.format_conv, dtype).permute(0, 3, 1, 2)
+    up = net.format_up
+    out = F.conv_transpose2d(h, up.weight.to(h.device, dtype), up.bias.to(h.device, dtype), up.stride)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 class ConvNeXtBlock(nn.Module):
@@ -423,11 +446,7 @@ class ConvNeXtLayers:
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """The 1x1 format conv and the stride-4 transpose upsample (both
         row-local) -> the head's NHWC rows in the compute dtype."""
-        net, dtype = self.net, self.dtype
-        h = _conv_nhwc(h, net.format_conv, dtype).permute(0, 3, 1, 2)
-        up = net.format_up
-        out = F.conv_transpose2d(h, up.weight.to(h.device, dtype), up.bias.to(h.device, dtype), up.stride)
-        return out.permute(0, 2, 3, 1).contiguous()
+        return format_head(self.net, h, self.dtype)
 
 
 def run_convnext(layers, x: torch.Tensor, depths: Sequence[int], remat: str = "none") -> torch.Tensor:
@@ -511,6 +530,279 @@ class ConvNeXtSmall(nn.Module):
             out = run_convnext(layers, x, self.depths, remat)
         else:
             out = split.convnext([layers] * len(split.devices), x, remat)
+        return out.permute(0, 3, 1, 2)
+
+
+@functools.lru_cache(maxsize=16)
+def swin_relative_index(window: int, device: torch.device) -> torch.Tensor:
+    """(w*w, w*w) int64 on `device`: row i, column j is the entry of a
+    (2w-1)^2-row relative-bias table that query token i reads for key
+    token j of a window (tokens row-major), as Swin builds it: the offsets
+    (dy, dx) shifted to start at 0, dy * (2w-1) + dx. Made once a window
+    size and device, outside inference mode."""
+    with torch.inference_mode(False):
+        ar = torch.arange(window)
+        coords = torch.stack(torch.meshgrid(ar, ar, indexing="ij")).flatten(1)  # (2, w*w)
+        rel = coords[:, :, None] - coords[:, None, :] + (window - 1)
+        return (rel[0] * (2 * window - 1) + rel[1]).to(device)
+
+
+def swin_relative_bias(table: torch.Tensor, window: int) -> torch.Tensor:
+    """(heads, w*w, w*w) float32: each head's bias between a window's
+    query and key tokens, gathered from its column of `table`
+    ((2w-1)^2, heads) by swin_relative_index."""
+    idx = swin_relative_index(window, table.device)
+    return table[idx.flatten()].view(*idx.shape, -1).permute(2, 0, 1)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, Hp, Wp, C), Hp and Wp multiples of `window` -> (B, w*w, nW, C):
+    token t of window n (t row-major in the window, n row-major over the
+    map's windows). Token-major, so that a projection's (B, w*w, nW,
+    heads * d) output is attention's (batch, sequence, nW * heads, d)
+    layout as it is."""
+    b, hp, wp, c = x.shape
+    x = x.view(b, hp // window, window, wp // window, window, c)
+    return x.permute(0, 2, 4, 1, 3, 5).reshape(b, window * window, -1, c)
+
+
+def window_reverse(x: torch.Tensor, window: int, hp: int, wp: int) -> torch.Tensor:
+    """The inverse of window_partition: (B, w*w, nW, C) -> (B, Hp, Wp, C)."""
+    b, _, _, c = x.shape
+    x = x.view(b, window, window, hp // window, wp // window, c)
+    return x.permute(0, 3, 1, 4, 2, 5).reshape(b, hp, wp, c)
+
+
+def swin_shift_mask(hp: int, wp: int, window: int, shift: int, device) -> torch.Tensor:
+    """(nW, w*w, w*w) float32 of 0 and SWIN_MASK: the shifted windows'
+    mask over a padded (Hp, Wp) map, as Swin builds it. The map rolled by
+    -shift is cut into three regions along each axis (up to -window,
+    -window to -shift, the last `shift`), numbered 0-8; a query and a key
+    of different regions get SWIN_MASK."""
+    region = torch.zeros(1, hp, wp, 1)
+    cuts = (slice(0, -window), slice(-window, -shift), slice(-shift, None))
+    n = 0
+    for rows in cuts:
+        for cols in cuts:
+            region[:, rows, cols] = n
+            n += 1
+    r = window_partition(region, window)[0, :, :, 0].T  # (nW, w*w)
+    diff = r[:, None, :] - r[:, :, None]
+    return torch.where(diff != 0, SWIN_MASK, 0.0).to(device)
+
+
+@contextlib.contextmanager
+def fused_attention(device: torch.device):
+    """On CUDA, scaled_dot_product_attention limited to its fused backends
+    (memory-efficient, cuDNN): where neither takes the call it raises,
+    rather than falling back to the math backend, which writes the whole
+    (B, heads, L, L) logits to memory. Elsewhere torch chooses."""
+    if device.type != "cuda":
+        yield
+        return
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]):
+        yield
+
+
+class SwinBlock(nn.Module):
+    """One Swin Transformer block on an NHWC float32 map (residual stream),
+    as the padded detection backbone runs it
+    (Swin-Transformer-Object-Detection, mmdet/models/backbones/
+    swin_transformer.py SwinTransformerBlock): LayerNorm, zero padding to
+    a multiple of the window, the cyclic shift (roll by -shift) where
+    `shift` > 0, windows of w*w tokens, window attention with the
+    relative bias (and the shift mask), the projection, the reverse
+    layout, the crop and the residual; then LayerNorm, MLP (Dense 4x,
+    exact GELU, Dense back) and the residual. The Denses compute in the
+    forward's dtype.
+
+    The bias plus the mask of each padded map size is one additive tensor
+    in the compute dtype, (1, nW * heads, w*w, w*w), broadcast over the
+    batch; it is made once a device, dtype and map size, and made again
+    when the table changes (load_state_dict), except in a forward that
+    records gradients, which makes it anew."""
+
+    def __init__(self, dim: int, heads: int, window: int, shift: int):
+        super().__init__()
+        self.heads, self.window, self.shift = heads, window, shift
+        self.attn_norm = LayerNorm(dim, SWIN_LN_EPS)
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.rel_bias = nn.Parameter(torch.zeros((2 * window - 1) ** 2, heads))
+        self.proj = nn.Linear(dim, dim)
+        self.mlp_norm = LayerNorm(dim, SWIN_LN_EPS)
+        self.fc1 = nn.Linear(dim, 4 * dim)
+        self.fc2 = nn.Linear(4 * dim, dim)
+        self._bias_cache = (None, {})
+
+    def attn_bias(self, hp: int, wp: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+        """(1, nW * heads, w*w, w*w) in `dtype`: the relative bias plus,
+        where the block shifts, the shift mask of a padded (Hp, Wp) map.
+        Its rows are padded to a multiple of 8 elements and sliced back,
+        so that the fused kernels read it in place (the memory-efficient
+        one would copy a tensor whose row stride is not a multiple of 8)."""
+        table = self.rel_bias
+        if torch.is_grad_enabled() and table.requires_grad:
+            return self._make_bias(hp, wp, dtype, device)
+        version = (table.data_ptr(), table._version)
+        if self._bias_cache[0] != version:
+            self._bias_cache = (version, {})
+        made = self._bias_cache[1]
+        key = (device, dtype, hp, wp)
+        if key not in made:
+            with torch.inference_mode(False), torch.no_grad():
+                made[key] = self._make_bias(hp, wp, dtype, device)
+        return made[key]
+
+    def _make_bias(self, hp: int, wp: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+        w2 = self.window * self.window
+        bias = swin_relative_bias(self.rel_bias.to(device), self.window)[None]  # (1, heads, w2, w2)
+        if self.shift:
+            bias = bias + swin_shift_mask(hp, wp, self.window, self.shift, device)[:, None]
+        else:
+            bias = bias.expand((hp // self.window) * (wp // self.window), -1, -1, -1)
+        out = torch.zeros(1, bias.shape[0] * self.heads, w2, -(-w2 // 8) * 8, dtype=dtype, device=device)
+        out[..., :w2] = bias.reshape(1, -1, w2, w2)
+        return out[..., :w2]
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        b, h, w, c = x.shape
+        win, shift, heads = self.window, self.shift, self.heads
+        hp, wp = -(-h // win) * win, -(-w // win) * win
+        n_win = (hp // win) * (wp // win)
+        tracing.add(swin_windows=b * n_win * heads, swin_pad_tokens=b * (hp * wp - h * w))
+        t = self.attn_norm(x).to(dtype)
+        with tracing.span("swin/layout", x.device):
+            t = F.pad(t, (0, 0, 0, wp - w, 0, hp - h))
+            if shift:
+                t = torch.roll(t, (-shift, -shift), (1, 2))
+            t = window_partition(t, win)  # (B, w*w, nW, C)
+        wq, bq = self.qkv.weight.to(x.device, dtype), self.qkv.bias.to(x.device, dtype)
+        q, k, v = (F.linear(t, wq[i * c:(i + 1) * c], bq[i * c:(i + 1) * c])
+                   .view(b, win * win, n_win * heads, c // heads).transpose(1, 2) for i in range(3))
+        bias = self.attn_bias(hp, wp, dtype, x.device)
+        with tracing.span("swin/attn", x.device):
+            t = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=(c // heads) ** -0.5)
+        t = _linear(t.transpose(1, 2).reshape(b, win * win, n_win, c), self.proj, dtype)
+        with tracing.span("swin/layout", x.device):
+            t = window_reverse(t, win, hp, wp)
+            if shift:
+                t = torch.roll(t, (shift, shift), (1, 2))
+            t = t[:, :h, :w]
+        x = x + t
+        y = F.gelu(_linear(self.mlp_norm(x), self.fc1, dtype), approximate="none")
+        return x + _linear(y, self.fc2, dtype)
+
+
+class SwinMerge(nn.Module):
+    """Swin's patch merging, as the detection backbone runs it: an odd
+    height or width padded by one zero row or column, each 2x2 patch's
+    four tokens concatenated (x0 x1 x2 x3: (0,0), (1,0), (0,1), (1,1)),
+    LayerNorm over 4C and a Dense without bias to 2C, in `dtype`; the
+    output goes back to the float32 residual stream."""
+
+    def __init__(self, dim: int, out_dim: int):
+        super().__init__()
+        self.norm = LayerNorm(4 * dim, SWIN_LN_EPS)
+        self.reduction = nn.Linear(4 * dim, out_dim, bias=False)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        h, w = x.shape[1:3]
+        x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], -1)
+        return _linear(self.norm(x), self.reduction, dtype).float()
+
+
+class SwinSmall(nn.Module):
+    """Swin-S trunk + YOGO format head (Liu et al. 2021, arXiv:2103.14030;
+    timm's swin_small_patch4_window7_224 for the widths, the padded
+    detection backbone of Swin-Transformer-Object-Detection for the
+    layout): a 4x4 stride-4 patch embedding + LayerNorm, four stages of
+    SwinBlocks (every second one shifted by window // 2) with a SwinMerge
+    between them, a final LayerNorm, then YOGO's 1x1 conv to 5+C and 4x4
+    stride-4 transpose conv. NHWC throughout, the residual stream float32,
+    the convs and Denses in the input's dtype (YOGO.apply casts the input
+    to the compute dtype); LayerNorms as `layer_norm`, eps 1e-5.
+
+    Departures from the published code, none of which changes the
+    arithmetic at sides that are multiples of 4:
+      - the patch embedding crops a side that is not a multiple of 4 (the
+        grid arithmetic's floor) where the published code pads it;
+      - qkv runs as three Denses (q, k, v: rows of the one qkv kernel) on
+        token-major windows (window_partition), whose outputs are
+        attention's layout without a copy;
+      - attention is F.scaled_dot_product_attention with the relative bias
+        and the shift mask as one additive tensor in the compute dtype
+        (in a bf16 forward the bias is rounded to bf16); on CUDA only its
+        fused backends run (fused_attention);
+      - the relative-bias tensor is a block's own (each block has its
+        table) and is kept between forwards (SwinBlock.attn_bias);
+      - no stochastic depth or dropout (the published rates act in
+        training only), no absolute position embedding (off in Swin-S).
+
+    Like ConvNeXtSmall there is no BatchNorm and no dropout: `train`,
+    `bn_frozen`, `generator` and `batch_rows` change nothing. remat="blocks"
+    checkpoints each block, "full" the whole forward. There is no row
+    split. The spans "swin/layout" (pad, roll, partition; reverse,
+    unroll, crop) and "swin/attn" (the attention) and the counters
+    `swin_windows` and `swin_pad_tokens` are utils/tracing.py's."""
+
+    def __init__(self, num_outputs: int, in_channels: int = 1,
+                 depths: Tuple[int, ...] = SWIN_DEPTHS,
+                 dims: Tuple[int, ...] = SWIN_DIMS,
+                 heads: Tuple[int, ...] = SWIN_HEADS):
+        super().__init__()
+        self.depths, self.dims, self.heads = tuple(depths), tuple(dims), tuple(heads)
+        self.stem_conv = nn.Conv2d(in_channels, dims[0], 4, stride=4)
+        self.stem_norm = LayerNorm(dims[0], SWIN_LN_EPS)
+        for s, (depth, dim) in enumerate(zip(self.depths, self.dims)):
+            if s > 0:
+                self.add_module(f"merge{s}", SwinMerge(dims[s - 1], dim))
+            for b in range(depth):
+                shift = SWIN_WINDOW // 2 if b % 2 else 0
+                self.add_module(f"stage{s}_block{b}", SwinBlock(dim, heads[s], SWIN_WINDOW, shift))
+        self.final_norm = LayerNorm(dims[-1], SWIN_LN_EPS)
+        self.format_conv = nn.Conv2d(dims[-1], num_outputs, 1)
+        self.format_up = nn.ConvTranspose2d(num_outputs, num_outputs, 4, stride=4)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        start_block: int = 0,
+        *,
+        train: bool = False,
+        bn_frozen: bool = False,
+        generator: Optional[torch.Generator] = None,
+        remat: str = "none",
+        batch_rows: Optional[Tuple[int, int]] = None,
+        split=None,
+    ) -> torch.Tensor:
+        """(B, C, H, W) in the compute dtype -> (B, 5+C, Sy, Sx) head
+        logits in the compute dtype (a channels_last view)."""
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
+        if start_block:
+            raise ValueError("the swin family has no fused stem to start after")
+        if split is not None:
+            raise NotImplementedError("no row split for the swin family")
+        del train, bn_frozen, generator, batch_rows  # no BN, no dropout
+        recompute = remat != "none" and torch.is_grad_enabled()
+        if recompute and remat == "full":
+            return checkpoint(self._forward, x, "none", use_reentrant=False)
+        return self._forward(x, "blocks" if recompute else "none")
+
+    def _forward(self, x: torch.Tensor, remat: str) -> torch.Tensor:
+        dtype = x.dtype
+        with fused_attention(x.device):
+            h = self.stem_norm(_conv_nhwc(x.permute(0, 2, 3, 1), self.stem_conv, dtype))
+            for s, depth in enumerate(self.depths):
+                if s > 0:
+                    h = getattr(self, f"merge{s}")(h, dtype)
+                for b in range(depth):
+                    block = getattr(self, f"stage{s}_block{b}")
+                    h = checkpoint(block, h, dtype, use_reentrant=False) if remat == "blocks" else block(h, dtype)
+            out = format_head(self, self.final_norm(h), dtype)
         return out.permute(0, 3, 1, 2)
 
 
@@ -622,7 +914,7 @@ def no_tf32(device: torch.device):
 class YOGO:
     """Static model configuration + functional forward (mirrors
     yogo_tpu.models.yogo.YOGO; the weights live in the module of the
-    architecture's family, a ConvStack or a ConvNeXtSmall)."""
+    architecture's family, a ConvStack, a ConvNeXtSmall or a SwinSmall)."""
 
     img_size: Tuple[int, int]  # (H, W)
     anchor_w: float
@@ -659,18 +951,20 @@ class YOGO:
         return self.grid[1]
 
     def module(self, device=None, channels_last: bool = True) -> nn.Module:
-        """The module of this architecture's family (a ConvStack or a
-        ConvNeXtSmall) in eval mode on `device` (default CUDA), with torch's
+        """The module of this architecture's family (a ConvStack, a
+        ConvNeXtSmall or a SwinSmall) in eval mode on `device` (default CUDA), with torch's
         default init; load weights with
         load_state_dict(state_dict_from_flax(variables)), or start from
         `init`. Whether a forward trains is an argument of `apply`, not the
         module's mode. `channels_last` picks a conv stack's memory format;
-        the convnext trunk always runs NHWC."""
+        the convnext and swin trunks always run NHWC."""
         defn = self.defn
         device = resolve_device(device)
         if defn.family == "convnext":
             net = ConvNeXtSmall(5 + self.num_classes, self.input_channels)
             return net.to(device).eval()
+        if defn.family == "swin":
+            return SwinSmall(5 + self.num_classes, self.input_channels).to(device).eval()
         if defn.family != "conv_stack":
             raise NotImplementedError(f"{defn.family} models are not ported")
         stack = ConvStack(defn.blocks, self.input_channels, channels_last)
@@ -690,7 +984,9 @@ class YOGO:
         yogo/model.py:79-87), zero biases, BN scale 1 / bias 0, running mean
         0 / var 1. ConvNeXt: flax's defaults, lecun_normal kernels (fan-in,
         truncated normal), zero biases, LayerNorm scale 1 / bias 0, `gamma`
-        1e-6. The values are drawn on the CPU from `generator` (a CPU
+        1e-6. Swin: timm's, Dense kernels and the relative-bias tables
+        normal with std 0.02 (truncated at +-2), zero biases, LayerNorm 1 /
+        0; its convs (patch embedding, head) as ConvNeXt's. The values are drawn on the CPU from `generator` (a CPU
         generator; None uses torch's global one), so a seed gives the same
         weights on any device."""
         device = resolve_device(device)
@@ -702,6 +998,21 @@ class YOGO:
                         _lecun_normal_(m.weight, m.weight[0].numel(), generator)
                         m.bias.zero_()
                     elif isinstance(m, nn.ConvTranspose2d):  # (I, O, kh, kw)
+                        _lecun_normal_(m.weight, m.weight.numel() // m.weight.shape[1], generator)
+                        m.bias.zero_()
+                return stack.to(device)
+            if isinstance(stack, SwinSmall):
+                for m in stack.modules():
+                    if isinstance(m, nn.Linear):
+                        nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
+                        if m.bias is not None:
+                            m.bias.zero_()
+                    elif isinstance(m, SwinBlock):
+                        nn.init.trunc_normal_(m.rel_bias, std=0.02, generator=generator)
+                    elif isinstance(m, nn.Conv2d):
+                        _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                        m.bias.zero_()
+                    elif isinstance(m, nn.ConvTranspose2d):
                         _lecun_normal_(m.weight, m.weight.numel() // m.weight.shape[1], generator)
                         m.bias.zero_()
                 return stack.to(device)
@@ -811,8 +1122,8 @@ class YOGO:
         `remat` checkpoints activations (see ConvStack.forward and
         ConvNeXtSmall). tuning=True freezes BN: it
         normalises with the running statistics and never updates them, in
-        either mode (reference: yogo/model.py:67-70). ConvNeXt has neither
-        BN nor dropout. `split` (a parallel/spatial.RowSplit over this
+        either mode (reference: yogo/model.py:67-70). ConvNeXt and Swin
+        have neither BN nor dropout. `split` (a parallel/spatial.RowSplit over this
         model) runs the module with each image's rows over its devices,
         from x on the first; the fused stem kernel is then not taken (the
         row-split inference of infer / serve is RowSplit.forward_raw)."""

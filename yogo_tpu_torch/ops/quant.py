@@ -384,7 +384,8 @@ def family_quant_plan(model, variables, device=None):
         return build_convnext_qp, family_quant_forward(model), len(quant_sites()), False
     if model.defn.family != "conv_stack":
         raise ValueError(
-            f"--quantize supports conv-stack models only (got {model.defn.family})"
+            f"--quantize supports the conv_stack and convnext families only "
+            f"(got {model.defn.family!r}: {model.model_version})"
         )
     skip = default_skip_blocks(model.defn, model.input_channels)
     n_scales = (len(model.defn.blocks) - 1) + sum(

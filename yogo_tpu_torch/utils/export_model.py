@@ -250,7 +250,7 @@ def build_onnx(
         cur = _emit_conv_stack(nodes, inits, cur, defn, params, stats)
     elif defn.family == "convnext":
         cur = _emit_convnext(nodes, inits, cur, model, params)
-    else:  # pragma: no cover - YOGO.module refuses other families too
+    else:
         raise NotImplementedError(f"ONNX export for family {defn.family} not supported")
 
     # ---- decode head (reference: yogo/model.py:277-313) ----

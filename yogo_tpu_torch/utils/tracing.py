@@ -24,6 +24,15 @@ window's counters that `counts()` returns.
     nms_kernel_launches  those that launched csrc/nms.cu (CUDA tensors)
     nms_rounds           keep updates of the fixed-point loop (the plain version)
     nms_host_syncs       device-to-host syncs of that loop (one a convergence test)
+    swin_windows         windows x heads attended by Swin blocks (models/yogo.py
+                         SwinBlock), summed over a forward's blocks and images
+    swin_pad_tokens      tokens a Swin block pads its map with to whole windows,
+                         computes and then crops, over its blocks and images
+
+The Swin trunk's spans, each with its device: "swin/attn" (the window
+attention: q, k, v in, the attended values out; one a block) and
+"swin/layout" (pad, roll and window partition before the qkv Dense;
+window reverse, unroll and crop after the projection; two a block).
 """
 
 from __future__ import annotations

@@ -7,12 +7,16 @@ torch's layouts and names under the same module paths:
 
   conv kernel  .../{conv}/kernel (HWIO)   <-> {conv}.weight (OIHW, transpose(3,2,0,1));
                a depthwise (7,7,1,C) gives (C,1,7,7)
-  Dense        .../pwconv{1,2}/kernel (I,O) <-> .weight (O,I)
+  Dense        .../{pwconv1,pwconv2,qkv,proj,fc1,fc2,reduction}/kernel (I,O)
+               <-> .weight (O,I)
   transpose    format_up/kernel (kh,kw,I,O) <-> format_up.weight (I,O,kh,kw),
                spatially flipped: flax's ConvTranspose correlates with the
                kernel as it is, torch's ConvTranspose2d with it flipped
   norms        bn{i} / *norm: scale, bias <-> weight, bias
   ConvNeXt     stage{s}_block{b}/gamma <-> stage{s}_block{b}.gamma (a bare parameter)
+  Swin         stage{s}_block{b}/rel_bias <-> stage{s}_block{b}.rel_bias (a bare
+               parameter; the swin family is the port's own, so this layout
+               is only its checkpoints')
   biases       bias <-> bias
   BN stats     batch_stats/bn{i}/{mean,var} <-> bn{i}.running_{mean,var}
   (bn{i}.num_batches_tracked, which flax does not track, is 0 one way and
@@ -41,7 +45,8 @@ from torch.distributed.tensor import DTensor
 from yogo_tpu_torch.parallel.mesh import full_tensor, shard_like
 
 _STATS = {"running_mean": "mean", "running_var": "var"}
-_LINEAR = ("pwconv1", "pwconv2")
+_LINEAR = ("pwconv1", "pwconv2", "qkv", "proj", "fc1", "fc2", "reduction")
+_BARE = ("gamma", "rel_bias")  # parameters of a module, not of a submodule
 _TRANSPOSE = ("format_up",)
 
 
@@ -92,7 +97,7 @@ def named_from_flax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for name, child in node.items():
             if isinstance(child, dict):
                 walk(child, path + (name,))
-            elif name == "gamma":
+            elif name in _BARE:
                 out[".".join(path + (name,))] = _tensor(child)
             elif not path:
                 raise ValueError(f"unexpected top-level parameter {name!r}")
@@ -112,7 +117,7 @@ def flax_params_from_named(named: Dict[str, Any]) -> Dict[str, Any]:
         a = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
         a = np.asarray(a, np.float32)
         *path, suffix = key.split(".")
-        if suffix == "gamma":
+        if suffix in _BARE:
             node, leaf = params, suffix
         else:
             if not path:
