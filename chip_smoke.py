@@ -19,6 +19,13 @@ Phases (any failure exits non-zero):
      and on the CPU, bit for bit, at B=64 on the golden scene's heads at
      K = 256 and 1,024 and at 1,024 with every slot valid; its time (CUDA
      events) and that of the chain and loop it replaces;
+     3c. the LayerNorm kernel (layer_norm_phase) on the ConvNeXt-Small and
+     Swin-S trunks at B=64, 772x1032, seeded weights: 40 and 53 launches a
+     bf16 forward, the forward timed with the kernel and with the plain
+     chain in its place; each (C, rows, dtype in, dtype out) of those
+     launches against the plain version, and its time beside its byte
+     bound, the plain chain's and F.layer_norm's (`python3 chip_smoke.py
+     layer_norm` runs phases 1, 2 and 3c alone);
   4. main path: `infer --count` through the port's Predictor on the
      golden scene (4 images of tests/test_golden_fullres.py's generator):
      bf16 in both block layouts (the stem launch counters must move, and
@@ -1465,6 +1472,133 @@ def nms_phase(pred, raw):
             "chain_ms": cuda_ms(lambda: nms._suppression(boxes, scores, valid, iou, tiebreak=tb), 10),
         }
         log(f"nms {name}: " + json.dumps(out[name]))
+    return out
+
+
+# the LayerNorm launches of a bf16 forward of each trunk (ConvNeXt: stem, 36
+# blocks, 3 downsamples; Swin: stem, 2 in each of 24 blocks, 3 merges, final)
+LN_LAUNCHES = {"convnext_small": 40, "swin_small": 53}
+
+
+def layer_norm_phase(dev, big, kind):
+    """Phase 3c: the LayerNorm kernel (csrc/layer_norm.cu) on the trunks'
+    main path. A bf16 forward of each trunk at B=len(big), 772x1032, seeded
+    weights, records its LayerNorm calls (the launch counter must read
+    LN_LAUNCHES) and is timed with the kernel and with the plain chain in
+    its place (CUDA events, and device time by kernel), its head compared
+    with the plain one's. Each distinct (C, rows, input dtype, output
+    dtype) of those calls is then checked against the plain version on
+    seeded rows (f32 within 1e-5; bf16 within one ulp, in at most 1% of
+    the elements) and timed: the kernel (median of 30 x 20 launches), its
+    byte bound (each element read once, written once, at the card's
+    memory rate), the plain chain with the consumer's cast, and
+    F.layer_norm in the input's dtype as a yardstick (the port never calls
+    it)."""
+    import torch.nn.functional as F
+
+    from yogo_tpu_torch.models import yogo as Y
+    from yogo_tpu_torch.ops.layer_norm import layer_norm_cuda, plan
+    from yogo_tpu_torch.utils.tracing import COUNTS
+
+    def plain_ln(x, w, b, eps, dtype):
+        return Y.layer_norm(x, w, b, eps).to(dtype)
+
+    x64 = torch.from_numpy(big).to(dev)
+    out, shapes = {"trunks": {}, "shapes": []}, {}
+    for version, want in LN_LAUNCHES.items():
+        model = Y.YOGO.create(HW, 0.04, 0.05, 2, model_version=version, compute_dtype=torch.bfloat16)
+        net = model.init(torch.Generator().manual_seed(0), device=dev)
+        seen = []
+
+        def spy(x, w, b, eps, dtype, seen=seen):
+            seen.append((x.shape[-1], x.numel() // x.shape[-1], str(x.dtype), str(dtype), eps))
+            return layer_norm_cuda(x, w, b, eps, dtype)
+
+        def forward(model=model, net=net):
+            return model.apply(net, x64, decode=False)
+
+        before = COUNTS["ln_kernel_launches"]
+        Y.layer_norm_cuda = spy
+        try:
+            head = forward()
+        finally:
+            Y.layer_norm_cuda = layer_norm_cuda
+        torch.cuda.synchronize()
+        launched = COUNTS["ln_kernel_launches"] - before
+        if launched != want or len(seen) != want:
+            raise AssertionError(f"{version}: {launched} LayerNorm kernel launches a forward, not {want}")
+        ms = cuda_ms(forward, reps=3, per_rep=2, warmup=1)
+        prof = forward_profile({"kernel": forward}, reps=1, top=15)["kernel"]
+        Y.layer_norm_cuda = plain_ln
+        try:
+            plain_head = forward()
+            plain_ms = cuda_ms(forward, reps=3, per_rep=2, warmup=1)
+            plain_prof = forward_profile({"plain": forward}, reps=1, top=15)["plain"]
+            f32_head = model.with_compute_dtype(torch.float32).apply(net, x64, decode=False)
+        finally:
+            Y.layer_norm_cuda = layer_norm_cuda
+
+        def rel(a, b):
+            return float((a.double() - b.double()).norm() / b.double().norm())
+
+        # the kernel's bf16 head is as close to the f32 forward's as the
+        # plain chain's: a flipped bf16 ulp re-rounds every later Dense, so
+        # the two bf16 heads part by bf16's own noise
+        d_kernel, d_plain = rel(head, f32_head), rel(plain_head, f32_head)
+        if d_kernel > 1.25 * d_plain:
+            raise AssertionError(f"{version}: the kernel's head is {d_kernel:.5f} off the f32 head, "
+                                 f"the plain chain's {d_plain:.5f}")
+        out["trunks"][version] = {"launches": launched, "forward_ms": ms, "forward_plain_ms": plain_ms,
+                                  "head_rel_rms_vs_plain": rel(head, plain_head),
+                                  "head_rel_rms_vs_f32": d_kernel, "plain_head_rel_rms_vs_f32": d_plain,
+                                  "profile": prof, "plain_profile": plain_prof}
+        log(f"layer_norm {version}: " + json.dumps({k: v for k, v in out["trunks"][version].items()
+                                                       if "profile" not in k}))
+        for key in seen:
+            shapes.setdefault(key, {}).setdefault(version, 0)
+            shapes[key][version] += 1
+        del net, head, plain_head, f32_head
+        torch.cuda.empty_cache()
+
+    dtypes = {str(t): t for t in (torch.bfloat16, torch.float32)}
+    g = torch.Generator(device=dev).manual_seed(0)
+    mem_rate = rate(MEM_RATE, kind)
+    for (c, rows, xd, od, eps), by_trunk in sorted(shapes.items(), key=lambda kv: (kv[0][0], -kv[0][1], kv[0][2:4])):
+        xdt, odt = dtypes[xd], dtypes[od]
+        x = (torch.randn(rows, c, device=dev, generator=g) * 1.5 + 0.5).to(xdt)
+        w = torch.rand(c, device=dev, generator=g) + 0.5
+        b = torch.randn(c, device=dev, generator=g) * 0.5
+        wl, bl = w.to(xdt), b.to(xdt)
+        got, want = layer_norm_cuda(x, w, b, eps, odt), plain_ln(x, w, b, eps, odt)
+        gf, wf = got.float(), want.float()
+        differ = float((gf != wf).float().mean())
+        if odt == torch.float32:
+            torch.testing.assert_close(gf, wf, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(gf, wf, rtol=2.0 ** -7, atol=1e-5)
+            if differ > 0.01:
+                raise AssertionError(f"layer_norm C={c} {xd}->{od}: {differ:.4f} of the elements differ")
+        n_bytes = rows * c * (xdt.itemsize + odt.itemsize) + 8 * c
+        row = {
+            "c": c, "rows": rows, "in": xd, "out": od, "eps": eps, "plan": list(plan(c, odt)),
+            "launches_a_forward": by_trunk,
+            "max_abs_err": float((gf - wf).abs().max()), "share_differing": differ,
+            "bytes": n_bytes, "bound_ms": n_bytes / mem_rate * 1e3,
+            "ms": cuda_ms(lambda: layer_norm_cuda(x, w, b, eps, odt), 30),
+            "plain_ms": cuda_ms(lambda: plain_ln(x, w, b, eps, odt), 10),
+            "library_ms": cuda_ms(lambda: F.layer_norm(x, (c,), wl, bl, eps), 10),
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out["shapes"].append(row)
+        log("layer_norm shape: " + json.dumps(row))
+        del x, got, want, gf, wf
+        torch.cuda.empty_cache()
+    for version in LN_LAUNCHES:
+        t = out["trunks"][version]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            t[f"ln_{key}_a_forward"] = sum(r[key] * r["launches_a_forward"].get(version, 0) for r in out["shapes"])
+        t["ln_bound_share"] = t["ln_bound_ms_a_forward"] / t["ln_ms_a_forward"]
+        log(f"layer_norm {version} a forward: " + json.dumps({k: v for k, v in t.items() if k.startswith("ln_")}))
     return out
 
 
@@ -3367,6 +3501,10 @@ def main() -> int:
     with torch.inference_mode():
         report["nms"] = nms_phase(ref_pred, ref_pred.forward_raw(big))
 
+    # --------------------------------- 3c. LayerNorm on the trunks' main path
+    report["layer_norm"] = layer_norm_phase(dev, big, kind)
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- 4. main path
     def per_image_counts(pred, raw):
         per = []
@@ -3671,6 +3809,25 @@ def main() -> int:
         "launches_count_path_b64": report["timing"]["stages"]["nhwc"]["nms_kernel_launches_b64"],
         "by_case": report["nms"],
     })
+    ln = report["layer_norm"]
+    rows.append({
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "yogo_tpu_torch/csrc/layer_norm.cu",
+        # none: the JAX package leaves flax's nn.LayerNorm to XLA's fusion
+        "replaces": None,
+        # phase 3c: a bf16 forward of each trunk at B=64
+        "launches": {v: t["launches"] for v, t in ln["trunks"].items()},
+        "max_abs_err": max(r["max_abs_err"] for r in ln["shapes"]),
+        # the LayerNorms of one B=64 forward of each trunk, summed
+        "ms": {v: t["ln_ms_a_forward"] for v, t in ln["trunks"].items()},
+        "plain_ms": {v: t["ln_plain_ms_a_forward"] for v, t in ln["trunks"].items()},
+        "bound_ms": {v: t["ln_bound_ms_a_forward"] for v, t in ln["trunks"].items()},
+        "bound_by": "bytes",
+        "bound_share": {v: t["ln_bound_share"] for v, t in ln["trunks"].items()},
+        "library_ms": {v: t["ln_library_ms_a_forward"] for v, t in ln["trunks"].items()},
+        "by_shape": ln["shapes"],
+    })
     report["kernels"] = rows
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": rows}))
@@ -3679,7 +3836,40 @@ def main() -> int:
     return 0
 
 
+def layer_norm_main() -> int:
+    """`python3 chip_smoke.py layer_norm`: phases 1, 2 (the LayerNorm source
+    alone) and 3c; the report goes to chiprun_out/chip_smoke_layer_norm.json."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from yogo_tpu_torch import kernels
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(smi)
+    t0 = time.time()
+    kernels.build_all(["layer_norm"])
+    report = {"device": kind, "nvidia_smi": smi, "build_s": time.time() - t0,
+              "ptxas": kernels.ptxas_summary(kernels.build_log("layer_norm"))}
+    log(f"--- nvcc csrc/layer_norm.cu ({report['build_s']:.1f} s) ---\n{kernels.build_log('layer_norm').strip()}")
+    imgs4, _ = gen_golden_images(4)
+    big = np.concatenate([imgs4] * (TIMING_BATCH // 4))
+    report["layer_norm"] = layer_norm_phase(torch.device("cuda"), big, kind)
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_layer_norm.json").write_text(json.dumps(report, indent=1))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind}}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == [PARALLEL_WORKER]:
         sys.exit(dp_worker_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["layer_norm"]:
+        sys.exit(layer_norm_main())
     sys.exit(main())

@@ -194,10 +194,10 @@ def test_build_runs_nvcc_for_sm90a_into_a_hashed_library(tmp_path, monkeypatch):
     kernels.build_all()
     built = sorted(f(n).name for n in kernels.SOURCES for f in (kernels._lib_path, kernels._log_path))
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == built
-    assert sorted(kernels.SOURCES) == ["int8_conv", "nms", "stem"]
+    assert sorted(kernels.SOURCES) == ["int8_conv", "layer_norm", "nms", "stem"]
     runs = args.read_text().splitlines()
-    assert len(runs) == 3 and all("arch=compute_90a,code=sm_90a" in r for r in runs)
-    assert sorted(r.rsplit("csrc/", 1)[1] for r in runs) == ["int8_conv.cu", "nms.cu", "stem.cu"]
+    assert len(runs) == 4 and all("arch=compute_90a,code=sm_90a" in r for r in runs)
+    assert sorted(r.rsplit("csrc/", 1)[1] for r in runs) == ["int8_conv.cu", "layer_norm.cu", "nms.cu", "stem.cu"]
     assert all("50 registers" in kernels.build_log(n) for n in kernels.SOURCES)
     args.unlink()
     kernels.build_all()  # already built: nvcc is not run again

@@ -60,6 +60,14 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         ),
         "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "layer_norm": {
+        "yogo_layer_norm_launch": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p],
+        ),
+        "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _lock = threading.Lock()

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from yogo_tpu_torch.models.defns import ConvSpec, ModelDefn, get_model_defn
 from yogo_tpu_torch.ops.grid import WH_CLAMP, cell_offsets, grid_size
+from yogo_tpu_torch.ops.layer_norm import layer_norm_cuda
 from yogo_tpu_torch.ops.stem import STEM_CHANNELS, fold_stem_params, fused_stem_nchw
 from yogo_tpu_torch.parallel.distributed import all_reduce_sum_autograd, world_size
 from yogo_tpu_torch.utils import tracing
@@ -341,8 +342,11 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 class LayerNorm(nn.Module):
     """Parameters of one LayerNorm over the channels (flax's scale / bias
-    are weight / bias); the forward is `layer_norm`, the parameters taken
-    to x's device."""
+    are weight / bias). The forward is `layer_norm` with the parameters
+    taken to x's device, its float32 output cast to `dtype` when given. A
+    CUDA input for which no gradient is recorded (inference) takes the
+    same arithmetic as one kernel, ops/layer_norm.layer_norm_cuda, which
+    writes `dtype` directly; the CPU and autograd take the plain chain."""
 
     def __init__(self, dim: int, eps: float = LN_EPS):
         super().__init__()
@@ -350,8 +354,14 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight.to(x.device), self.bias.to(x.device), self.eps)
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        recorded = torch.is_grad_enabled() and (
+            x.requires_grad or self.weight.requires_grad or self.bias.requires_grad)
+        if x.device.type == "cuda" and not recorded:
+            w, b = (p.to(x.device, torch.float32) for p in (self.weight, self.bias))
+            return layer_norm_cuda(x.contiguous(), w, b, self.eps, dtype or torch.float32)
+        y = layer_norm(x, self.weight.to(x.device), self.bias.to(x.device), self.eps)
+        return y if dtype is None else y.to(dtype)
 
 
 def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -385,8 +395,9 @@ class ConvNeXtBlock(nn.Module):
     """One ConvNeXt block (yogo_tpu/models/yogo.py ConvNeXtBlock): 7x7
     depthwise conv, LayerNorm, Dense 4x, exact-erf GELU, Dense back, the
     per-channel `gamma` (1e-6 at init) and the residual. NHWC in, NHWC
-    float32 out: the LayerNorm returns float32, so in a bf16 model only the
-    convs and Dense layers compute in bf16. `dw` is the one op that reads
+    float32 out: the LayerNorm's statistics are float32 and its output is
+    in the Dense's dtype, so in a bf16 model only the convs and Dense
+    layers compute in bf16. `dw` is the one op that reads
     neighbouring rows; `rest` is row-local (a row shard runs `dw` on its
     window, `rest` on its own rows)."""
 
@@ -403,7 +414,7 @@ class ConvNeXtBlock(nn.Module):
 
     def rest(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """The block's output from its input x and dw(x) at the same rows."""
-        h = F.gelu(_linear(self.norm(h), self.pwconv1, dtype), approximate="none")
+        h = F.gelu(_linear(self.norm(h, dtype), self.pwconv1, dtype), approximate="none")
         return x + self.gamma.to(x.device) * _linear(h, self.pwconv2, dtype)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -429,7 +440,7 @@ class ConvNeXtLayers:
         return self.net.stem_norm(h)
 
     def down_in(self, s: int, h: torch.Tensor) -> torch.Tensor:
-        return getattr(self.net, f"down{s}_norm")(h)
+        return getattr(self.net, f"down{s}_norm")(h, self.dtype)
 
     def down_conv(self, s: int, h: torch.Tensor) -> torch.Tensor:
         return _conv_nhwc(h, getattr(self.net, f"down{s}_conv"), self.dtype)
@@ -672,7 +683,7 @@ class SwinBlock(nn.Module):
         hp, wp = -(-h // win) * win, -(-w // win) * win
         n_win = (hp // win) * (wp // win)
         tracing.add(swin_windows=b * n_win * heads, swin_pad_tokens=b * (hp * wp - h * w))
-        t = self.attn_norm(x).to(dtype)
+        t = self.attn_norm(x, dtype)
         with tracing.span("swin/layout", x.device):
             t = F.pad(t, (0, 0, 0, wp - w, 0, hp - h))
             if shift:
@@ -691,7 +702,7 @@ class SwinBlock(nn.Module):
                 t = torch.roll(t, (shift, shift), (1, 2))
             t = t[:, :h, :w]
         x = x + t
-        y = F.gelu(_linear(self.mlp_norm(x), self.fc1, dtype), approximate="none")
+        y = F.gelu(_linear(self.mlp_norm(x, dtype), self.fc1, dtype), approximate="none")
         return x + _linear(y, self.fc2, dtype)
 
 
@@ -711,7 +722,7 @@ class SwinMerge(nn.Module):
         h, w = x.shape[1:3]
         x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], -1)
-        return _linear(self.norm(x), self.reduction, dtype).float()
+        return _linear(self.norm(x, dtype), self.reduction, dtype).float()
 
 
 class SwinSmall(nn.Module):
@@ -802,7 +813,7 @@ class SwinSmall(nn.Module):
                 for b in range(depth):
                     block = getattr(self, f"stage{s}_block{b}")
                     h = checkpoint(block, h, dtype, use_reentrant=False) if remat == "blocks" else block(h, dtype)
-            out = format_head(self, self.final_norm(h), dtype)
+            out = format_head(self, self.final_norm(h, dtype), dtype)
         return out.permute(0, 3, 1, 2)
 
 
