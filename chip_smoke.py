@@ -183,6 +183,22 @@ def log(*a):
     print(*a, flush=True)
 
 
+def kernel_counts(since=None, *names, kind="launches"):
+    """{kernel: n} of utils/tracing.COUNTS' `<kernel>_kernel_<kind>`
+    counters (kind "launches" or "builds"), for the kernels whose name
+    starts with one of `names` (default: every kernel), less `since` (an
+    earlier kernel_counts() of every kernel): what ran since then, zeros
+    left out."""
+    from yogo_tpu_torch.utils.tracing import COUNTS
+
+    suffix, since, out = f"_kernel_{kind}", since or {}, {}
+    for key, n in list(COUNTS.items()):
+        name = key[: -len(suffix)]
+        if key.endswith(suffix) and name.startswith(names or "") and n > since.get(name, 0):
+            out[name] = n - since.get(name, 0)
+    return out
+
+
 def train_phase(dev, imgs4, boxes4, smi, *, batch=TIMING_BATCH, steps=30, small_batch=16,
                 ckpt=CKPT, model_version="base_model"):
     """Phase 6: the training step on `dev`. Returns (numbers for the
@@ -192,7 +208,6 @@ def train_phase(dev, imgs4, boxes4, smi, *, batch=TIMING_BATCH, steps=30, small_
     from yogo_tpu_torch.losses import yogo_loss
     from yogo_tpu_torch.models.yogo import YOGO, no_tf32
     from yogo_tpu_torch.ops.grid import encode_label_grid_np
-    from yogo_tpu_torch.ops.stem import LAUNCHES
     from yogo_tpu_torch.train import TrainState, make_optimizer, make_train_step
     from yogo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
@@ -360,7 +375,7 @@ def train_phase(dev, imgs4, boxes4, smi, *, batch=TIMING_BATCH, steps=30, small_
     del tuned, acc
 
     # ---- round trip through the checkpoint and the stem kernel
-    LAUNCHES.clear()
+    mark = kernel_counts()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trained.ckpt"
         save_checkpoint(
@@ -385,7 +400,7 @@ def train_phase(dev, imgs4, boxes4, smi, *, batch=TIMING_BATCH, steps=30, small_
                     err = float((raw.float() - want.float()).abs().max())
                     raise AssertionError(f"reloaded head differs from the trained stack's by {err}")
             round_trip[layout] = {"counts": counts}
-    launches = dict(LAUNCHES)
+    launches = kernel_counts(mark, "stem")
     out["round_trip"] = round_trip
     out["round_trip_stem_launches"] = launches
     log(f"train round trip: checkpoint {out['checkpoint_bytes']} B, reloaded head == in-memory head, "
@@ -536,9 +551,7 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
     from yogo_tpu_torch.metrics import DeviceMetrics, Metrics
     from yogo_tpu_torch.metrics import device_metrics as dm
     from yogo_tpu_torch.models.yogo import resolve_device
-    from yogo_tpu_torch.ops import int8_conv
     from yogo_tpu_torch.ops.postprocess import format_preds_batched
-    from yogo_tpu_torch.ops.stem import LAUNCHES
     from yogo_tpu_torch.train import make_eval_step, make_optimizer
     from yogo_tpu_torch.utils.checkpoint import load_checkpoint
     from yogo_tpu_torch.utils.default_hyperparams import DefaultHyperparams as df
@@ -547,16 +560,14 @@ def cli_phase(device_arg, *, hw=HW, n_frames=320, batch=TIMING_BATCH, model_vers
 
     out = {}
     by_command, int8_by_command = {}, {}
-    LAUNCHES.clear()
-    int8_conv.LAUNCHES.clear()
+    mark = [kernel_counts()]
 
     def launches_of(command, *, stem, int8=False):
         """Book the stem's and the int8 conv's launches since the last call
         under `command`; each must have launched iff expected."""
-        by_command[command] = dict(LAUNCHES)
-        int8_by_command[command] = int8_conv.LAUNCHES["int8_conv"]
-        LAUNCHES.clear()
-        int8_conv.LAUNCHES.clear()
+        by_command[command] = kernel_counts(mark[0], "stem")
+        int8_by_command[command] = kernel_counts(mark[0], "int8_conv").get("int8_conv", 0)
+        mark[0] = kernel_counts()
         if stem != bool(by_command[command]) or int8 != bool(int8_by_command[command]):
             raise AssertionError(f"launches in `{command}`: stem {by_command[command]}, int8 conv "
                                  f"{int8_by_command[command]}; expected stem {stem}, int8 {int8}")
@@ -983,7 +994,6 @@ def serve_phase(device_arg, imgs4, *, ckpt=CKPT, want_per_image=None, batches=(8
     from yogo_tpu_torch import kernels
     from yogo_tpu_torch.infer import Predictor
     from yogo_tpu_torch.models.yogo import resolve_device
-    from yogo_tpu_torch.ops.stem import LAUNCHES
     from yogo_tpu_torch.serve import build_server, format_detections
     from yogo_tpu_torch.serve_client import ServeClient
     from yogo_tpu_torch.tools import serve_load
@@ -1035,7 +1045,7 @@ def serve_phase(device_arg, imgs4, *, ckpt=CKPT, want_per_image=None, batches=(8
         low = dict(thr, obj_thresh=kth / 2)
         want_low = format_detections(decoded[0], classes, **low)
 
-        LAUNCHES.clear()
+        mark = kernel_counts()
         t0 = time.perf_counter()
         srv, stop = serving(batch_size=bsz, linger_ms=5.0)
         rep = {"build_and_warmup_s": time.perf_counter() - t0, "client_threads": threads[bsz]}
@@ -1074,7 +1084,7 @@ def serve_phase(device_arg, imgs4, *, ckpt=CKPT, want_per_image=None, batches=(8
             # ---- load: client threads, in processes of their own, stream
             # raw single frames; a hot reload of the same checkpoint lands
             # in the middle of the measured window
-            builds0, loaded0 = dict(kernels.BUILDS), dict(kernels._loaded)
+            builds0, loaded0 = kernel_counts(kind="builds"), dict(kernels._loaded)
             pred0 = srv.yogo_state["predictor"]
             profiled = on_card and bsz == max(batches)
             profile_s = 2.0  # the clients stream on through the profiler's window
@@ -1098,14 +1108,14 @@ def serve_phase(device_arg, imgs4, *, ckpt=CKPT, want_per_image=None, batches=(8
             reload, errors, busy = load.pop("midway"), load.pop("errors"), load.pop("after", None)
             if not reload["ok"] or srv.yogo_state["predictor"] is pred0:
                 raise AssertionError(f"serve B={bsz}: hot reload failed: {reload}")
-            if dict(kernels.BUILDS) != builds0 or dict(kernels._loaded) != loaded0:
+            if kernel_counts(builds0, kind="builds") or dict(kernels._loaded) != loaded0:
                 raise AssertionError(f"serve B={bsz}: the reload rebuilt or reloaded a kernel")
             if errors or not load["requests_in_window"]:
                 raise AssertionError(f"serve B={bsz}: {len(errors)} errors under load: {errors[:5]}")
             rep["load"] = {**load, "errors": 0, "reload": reload, "device_busy_under_load": busy}
         finally:
             stop()
-        launches[bsz] = dict(LAUNCHES)
+        launches[bsz] = kernel_counts(mark, "stem")
         rep["stem_launches"] = launches[bsz]
         if on_card and launches[bsz].get("stem_nhwc", 0) < 1:
             raise AssertionError(f"serve B={bsz}: the NHWC stem kernel was not launched")
@@ -1217,7 +1227,6 @@ def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timi
     from yogo_tpu_torch.ops import int8_conv as ic
     from yogo_tpu_torch.ops import quant
     from yogo_tpu_torch.ops.postprocess import format_preds
-    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
     from yogo_tpu_torch.serve import build_server, format_detections
     from yogo_tpu_torch.tools import serve_load
     from yogo_tpu_torch.tools.golden_scene import int8_gates
@@ -1310,11 +1319,10 @@ def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timi
     for i in range(n):
         write_png_gray(img_dir / f"g{i}.png", imgs4[i, 0])
     try:
-        STEM_LAUNCHES.clear()
-        ic.LAUNCHES.clear()
+        mark = kernel_counts()
         preds = predict(ckpt, path_to_images=img_dir, return_full_predictions=True, batch_size=4,
                         quantize=True, device=dev)
-        launches["infer"] = {**dict(STEM_LAUNCHES), **dict(ic.LAUNCHES)}
+        launches["infer"] = kernel_counts(mark, "stem", "int8_conv")
         if on_card and (launches["infer"].get("stem_nhwc", 0) < 1 or launches["infer"].get("int8_conv", 0) < 3):
             raise AssertionError(f"infer --quantize launched {launches['infer']}")
         dets = [format_preds(p, obj_thresh=0.5, iou_thresh=0.5) for p in preds]
@@ -1347,8 +1355,7 @@ def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timi
         del pred, qp, preds
         if on_card:
             torch.cuda.empty_cache()
-        STEM_LAUNCHES.clear()
-        ic.LAUNCHES.clear()
+        mark = kernel_counts()
         t0 = time.perf_counter()
         srv = build_server(ckpt, port=0, device=dev, batch_size=batch, quantize=True,
                            calibration_images=img_dir, linger_ms=5.0)
@@ -1372,7 +1379,7 @@ def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timi
             want_per_image = [len(golden[f"dets_{i}"]) for i in range(n)]
             if any(abs(a - b) > 2 for a, b in zip(per_image, want_per_image)):
                 raise AssertionError(f"serve --quantize: per-image {per_image} vs golden {want_per_image}")
-            builds0, loaded0 = dict(kernels.BUILDS), dict(kernels._loaded)
+            builds0, loaded0 = kernel_counts(kind="builds"), dict(kernels._loaded)
             load = serve_load.measure(port, frames, want, threads=threads, seconds=serve_load_s,
                                       midway=srv.reload_checkpoint)
             reload, errors = load.pop("midway"), load.pop("errors")
@@ -1386,7 +1393,7 @@ def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timi
             # the same checkpoint on the same images, under load: the same program
             if not all(torch.equal(a, b) for a, b in zip(leaves(served.qp), leaves(new_qp))):
                 raise AssertionError("serve --quantize: recalibrating under load built another program")
-            if dict(kernels.BUILDS) != builds0 or dict(kernels._loaded) != loaded0:
+            if kernel_counts(builds0, kind="builds") or dict(kernels._loaded) != loaded0:
                 raise AssertionError("serve --quantize: the reload rebuilt or reloaded a kernel")
             if errors or not load["requests_in_window"]:
                 raise AssertionError(f"serve --quantize: {len(errors)} errors under load: {errors[:5]}")
@@ -1396,7 +1403,7 @@ def int8_phase(device_arg, imgs4, golden, *, batch=TIMING_BATCH, ckpt=CKPT, timi
             srv.yogo_batcher.shutdown()
             srv.server_close()
             th.join(timeout=30)
-        launches["serve"] = {**dict(STEM_LAUNCHES), **dict(ic.LAUNCHES)}
+        launches["serve"] = kernel_counts(mark, "stem", "int8_conv")
         if on_card and launches["serve"].get("int8_conv", 0) < 3:
             raise AssertionError(f"serve --quantize launched {launches['serve']}")
         rep["launches"] = launches["serve"]
@@ -1448,15 +1455,14 @@ def nms_phase(pred, raw):
     torch.profiler) and the chain and loop it replaces (the plain version
     on the card, with its host syncs; the chain alone, device time)."""
     from yogo_tpu_torch.ops import nms
-    from yogo_tpu_torch.utils.tracing import COUNTS
 
     out = {}
     cases = [(f"golden_k{k}", k, None) for k in NMS_KS] + [("dense_k1024", 1024, 0.0)]
     for name, k, obj in cases:
         boxes, scores, valid, iou, tb = nms_inputs(pred, raw, k, obj)
-        before = COUNTS["nms_kernel_launches"]
+        mark = kernel_counts()
         got = nms.batched_nms(boxes, scores, valid, iou, tiebreak=tb)
-        launches = COUNTS["nms_kernel_launches"] - before
+        launches = sum(kernel_counts(mark, "nms").values())
         want = nms.batched_nms_reference(boxes, scores, valid, iou, tiebreak=tb)
         want_cpu = nms.batched_nms(*(t.cpu() for t in (boxes, scores, valid)), iou, tiebreak=tb.cpu())
         if launches != 1 or not (torch.equal(got, want) and torch.equal(got.cpu(), want_cpu)):
@@ -1498,7 +1504,6 @@ def layer_norm_phase(dev, big, kind):
 
     from yogo_tpu_torch.models import yogo as Y
     from yogo_tpu_torch.ops.layer_norm import layer_norm_cuda, plan
-    from yogo_tpu_torch.utils.tracing import COUNTS
 
     def plain_ln(x, w, b, eps, dtype):
         return Y.layer_norm(x, w, b, eps).to(dtype)
@@ -1517,14 +1522,14 @@ def layer_norm_phase(dev, big, kind):
         def forward(model=model, net=net):
             return model.apply(net, x64, decode=False)
 
-        before = COUNTS["ln_kernel_launches"]
+        mark = kernel_counts()
         Y.layer_norm_cuda = spy
         try:
             head = forward()
         finally:
             Y.layer_norm_cuda = layer_norm_cuda
         torch.cuda.synchronize()
-        launched = COUNTS["ln_kernel_launches"] - before
+        launched = sum(kernel_counts(mark, "layer_norm").values())
         if launched != want or len(seen) != want:
             raise AssertionError(f"{version}: {launched} LayerNorm kernel launches a forward, not {want}")
         ms = cuda_ms(forward, reps=3, per_rep=2, warmup=1)
@@ -1772,11 +1777,10 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
     import threading
 
     from yogo_tpu_torch.infer import Predictor, predict
-    from yogo_tpu_torch.models.yogo import YOGO, no_tf32, resolve_device
+    from yogo_tpu_torch.models.yogo import YOGO, resolve_device
     from yogo_tpu_torch.ops import int8_conv as ic
     from yogo_tpu_torch.ops import quant_convnext as qc
     from yogo_tpu_torch.ops.grid import encode_label_grid_np
-    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
     from yogo_tpu_torch.serve import build_server, format_detections
     from yogo_tpu_torch.serve_client import ServeClient
     from yogo_tpu_torch.train import TrainState, make_optimizer, make_train_step
@@ -1845,7 +1849,7 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
 
     # ------------------------------------- 2. bf16 infer --count at B=batch
     reset_peak()
-    STEM_LAUNCHES.clear()
+    mark = kernel_counts()
     pred = Predictor.from_checkpoint(ckpt, half=True, device=dev)
     ones = torch.ones(batch, dtype=torch.bool)
     raw = pred.forward_raw(big)
@@ -1855,10 +1859,10 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
     if raw.shape != (batch, sy, sx, 5 + len(classes)) or not torch.isfinite(raw.float()).all():
         raise AssertionError(f"convnext bf16 head {tuple(raw.shape)} {raw.dtype}, finite "
                              f"{bool(torch.isfinite(raw.float()).all())}")
-    if dict(STEM_LAUNCHES):
-        raise AssertionError(f"convnext launched the stem kernel: {dict(STEM_LAUNCHES)}")
-    out["bf16"] = {"batch": batch, "head_dtype": str(raw.dtype), "counts": counts,
-                   "stem_launches": sum(STEM_LAUNCHES.values())}
+    stem = kernel_counts(mark, "stem")
+    if stem:
+        raise AssertionError(f"convnext launched the stem kernel: {stem}")
+    out["bf16"] = {"batch": batch, "head_dtype": str(raw.dtype), "counts": counts, "stem_launches": 0}
     del raw
     if timing:
         x_dev = torch.from_numpy(big).to(dev)
@@ -1942,10 +1946,10 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
     for i, f in enumerate(imgs4):
         write_png_gray(img_dir / f"frame_{i}.png", f[0])
     reset_peak()
-    ic.LAUNCHES.clear()
+    mark = kernel_counts()
     preds = predict(ckpt, path_to_images=img_dir, quantize=True, batch_size=n,
                     return_full_predictions=True, device=dev)
-    launches = ic.LAUNCHES["int8_conv"]  # counts kernel launches: none on the CPU
+    launches = sum(kernel_counts(mark, "int8_conv").values())  # none on the CPU
     if (on_card and launches != len(qc.quant_sites())) or not np.isfinite(preds).all():
         raise AssertionError(f"convnext infer --quantize: {launches} int8 conv launches for one batch "
                              f"(expected {len(qc.quant_sites())}), finite {bool(np.isfinite(preds).all())}")
@@ -2062,7 +2066,7 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
         host formatter over the first served Predictor.forward of a batch
         of the server's shape. Returns (record, int8 conv launches from
         start-up to the last answer)."""
-        ic.LAUNCHES.clear()
+        mark = kernel_counts()
         srv = build_server(ckpt, port=0, device=dev, batch_size=sb, linger_ms=5.0, **kw)
         th = threading.Thread(target=srv.serve_forever, daemon=True)
         th.start()
@@ -2075,7 +2079,7 @@ def convnext_phase(device_arg, imgs4, boxes4, smi, *, hw=HW, batch=TIMING_BATCH,
                 if not srv.reload_checkpoint()["ok"]:
                     raise AssertionError(f"convnext serve {kw}: the reload failed")
                 got_reloaded = c.predict_many(imgs4)
-            served_launches = ic.LAUNCHES["int8_conv"]
+            served_launches = sum(kernel_counts(mark, "int8_conv").values())
         finally:
             srv.shutdown()
             srv.yogo_batcher.shutdown()
@@ -2137,7 +2141,6 @@ def export_phase(device_arg, imgs4, *, want_per_image, ckpt=CKPT, convnext_hw=HW
     from yogo_tpu_torch.__main__ import main as cli
     from yogo_tpu_torch.models.yogo import YOGO, resolve_device
     from yogo_tpu_torch.ops.postprocess import count_class_predictions
-    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
     from yogo_tpu_torch.utils.checkpoint import load_any
     from yogo_tpu_torch.utils.export_model import build_onnx, verify_onnx
     from yogo_tpu_torch.utils.onnx_interp import run_model
@@ -2153,7 +2156,7 @@ def export_phase(device_arg, imgs4, *, want_per_image, ckpt=CKPT, convnext_hw=HW
         return (time.perf_counter() - t0) * 1e3
 
     # ---------------------------------------------- 1. export, the CLI
-    STEM_LAUNCHES.clear()
+    mark = kernel_counts()
     t0 = time.perf_counter()
     cli(["export", str(ckpt), "--output-filename", str(tmp / "golden"), *flags])
     cli_ms = ms_since(t0)
@@ -2202,11 +2205,12 @@ def export_phase(device_arg, imgs4, *, want_per_image, ckpt=CKPT, convnext_hw=HW
     except NotImplementedError as e:
         if "python -m yogo_tpu export --format stablehlo" not in str(e):
             raise
-    out["stem_launches"] = sum(STEM_LAUNCHES.values())
+    stem = kernel_counts(mark, "stem")
+    out["stem_launches"] = sum(stem.values())
     log(f"export --crop-height 0.25: input {crop_shape}; --format pth: head bit-equal; "
         f"stablehlo raises; stem launches over every export command: {out['stem_launches']}")
-    if out["stem_launches"]:
-        raise AssertionError(f"export launched the stem kernel: {dict(STEM_LAUNCHES)}")
+    if stem:
+        raise AssertionError(f"export launched the stem kernel: {stem}")
 
     # ---------------------------------------------- 4. ConvNeXt-Small
     cnx = YOGO.create(convnext_hw, 0.0425, 0.0555, 2, model_version="convnext_small")
@@ -2430,8 +2434,6 @@ def dp_worker_world2(work: Path, spec: dict) -> dict:
 
     import yogo_tpu_torch.infer as infer_mod
     from yogo_tpu_torch.__main__ import main as cli
-    from yogo_tpu_torch.ops import int8_conv as ic
-    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
     from yogo_tpu_torch.parallel.distributed import barrier, initialize_multihost, process_shard
     from yogo_tpu_torch.parallel.mesh import full_state_dict, local_rows
     from yogo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -2495,13 +2497,12 @@ def dp_worker_world2(work: Path, spec: dict) -> dict:
     out["cli"] = {}
     for name, argv in cmds.items():
         log(f"rank {rank}: infer {name}")
-        STEM_LAUNCHES.clear()
-        ic.LAUNCHES.clear()
+        mark = kernel_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             cli(argv)
         out["cli"][name] = {"printed": [ln for ln in buf.getvalue().splitlines() if ln.startswith("[(")],
-                            "launches": {**dict(STEM_LAUNCHES), **dict(ic.LAUNCHES)}}
+                            "launches": kernel_counts(mark, "stem", "int8_conv")}
         barrier()
     infer_mod.quant_program_of_rank0 = orig
     out["int8_scales_hex"] = scales
@@ -2788,7 +2789,6 @@ def spatial_phase(device_arg, imgs4, golden, smi, *, ckpt=CKPT, batch=TIMING_BAT
     from yogo_tpu_torch.ops import int8_conv as ic
     from yogo_tpu_torch.ops import quant
     from yogo_tpu_torch.ops.postprocess import format_preds
-    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
     from yogo_tpu_torch.ops.stem import fused_stem_nchw
     from yogo_tpu_torch.parallel import spatial
     from yogo_tpu_torch.serve import build_server, format_detections
@@ -2809,14 +2809,16 @@ def spatial_phase(device_arg, imgs4, golden, smi, *, ckpt=CKPT, batch=TIMING_BAT
     def counts(pred, raw):
         return [int(pred.count(raw, torch.arange(n_img) == i).sum()) for i in range(n_img)]
 
+    mark = kernel_counts()
+
     def launched():
         sync()
-        return {**dict(STEM_LAUNCHES), **dict(ic.LAUNCHES)}
+        return kernel_counts(mark, "stem", "int8_conv")
 
     def clear():
+        nonlocal mark
         sync()
-        STEM_LAUNCHES.clear()
-        ic.LAUNCHES.clear()
+        mark = kernel_counts()
 
     pred1 = Predictor.from_checkpoint(ckpt, half=True, device=dev)
     model, h = pred1.model, int(pred1.model.img_size[0])
@@ -3045,11 +3047,10 @@ def spatial_train_phase(device_arg, imgs4, boxes4, golden, smi, *, ckpt=CKPT, da
     import threading
 
     from yogo_tpu_torch.infer import Predictor
-    from yogo_tpu_torch.models.yogo import YOGO, no_tf32
+    from yogo_tpu_torch.models.yogo import YOGO
     from yogo_tpu_torch.ops import int8_conv as ic
     from yogo_tpu_torch.ops import quant_convnext as qc
     from yogo_tpu_torch.ops.grid import encode_label_grid_np
-    from yogo_tpu_torch.ops.stem import LAUNCHES as STEM_LAUNCHES
     from yogo_tpu_torch.parallel import spatial
     from yogo_tpu_torch.serve import build_server, format_detections
     from yogo_tpu_torch.serve_client import ServeClient
@@ -3119,12 +3120,12 @@ def spatial_train_phase(device_arg, imgs4, boxes4, golden, smi, *, ckpt=CKPT, da
         rows = spatial.RowSplit(model, [dev] * n) if n > 1 else None
         step = make_train_step(model, loss_kw, augment=augment, remat=remat, rows=rows)
         mask = torch.ones(len(x), device=dev)
-        STEM_LAUNCHES.clear()
+        mark = kernel_counts()
         losses = [float(step(state, x, labels, mask, torch.Generator().manual_seed(11 + k))[1])
                   for k in range(steps)]
         sync()
         sd = {k: v.detach().clone() for k, v in stack.state_dict().items()}
-        return losses, sd, grads, sum(STEM_LAUNCHES.values()), (state, step, rows)
+        return losses, sd, grads, sum(kernel_counts(mark, "stem").values()), (state, step, rows)
 
     # -------------------------------- 1. base_model: the f32 gate at B=small
     gold_model, _, _ = load_checkpoint(ckpt)
@@ -3186,7 +3187,7 @@ def spatial_train_phase(device_arg, imgs4, boxes4, golden, smi, *, ckpt=CKPT, da
             step = make_train_step(bf16, loss_kw, rows=rows)
             mask = torch.ones(batch, device=dev)
             gen = torch.Generator().manual_seed(3)
-            STEM_LAUNCHES.clear()
+            mark = kernel_counts()
 
             def one():
                 return step(state, xb, labb, mask, gen)[1]
@@ -3195,7 +3196,7 @@ def spatial_train_phase(device_arg, imgs4, boxes4, golden, smi, *, ckpt=CKPT, da
             t["peak_gib"][n] = peak_gib()
             t["device_ms_by_kind"][n] = device_ms_by_kind(one)
             sync()
-            launches["train_spatial_bf16"][n] = sum(STEM_LAUNCHES.values())
+            launches["train_spatial_bf16"][n] = sum(kernel_counts(mark, "stem").values())
             if launches["train_spatial_bf16"][n]:
                 raise AssertionError(f"bf16 split training N={n} launched the stem kernel")
             if rows is not None:
@@ -3225,10 +3226,10 @@ def spatial_train_phase(device_arg, imgs4, boxes4, golden, smi, *, ckpt=CKPT, da
         trainer = Trainer(cfg, devices=[dev] * 2)
         trainer.init()
         start = trainer.global_step  # the checkpoint's
-        STEM_LAUNCHES.clear()
+        mark = kernel_counts()
         trainer.train()
         sync()
-        launches["trainer_spatial_2"] = sum(STEM_LAUNCHES.values())
+        launches["trainer_spatial_2"] = sum(kernel_counts(mark, "stem").values())
         steps = trainer.global_step - start
         del trainer
         pred = Predictor.from_checkpoint(run_dir / "best.ckpt", device=dev)
@@ -3269,12 +3270,12 @@ def spatial_train_phase(device_arg, imgs4, boxes4, golden, smi, *, ckpt=CKPT, da
     cnx["bf16"] = {"batch": len(cbig), "ms": {}, "device_ms_by_kind": {}, "head_rel_err": {}, "halo_bytes": {}}
     for n in (1, *ns):
         pn = p1 if n == 1 else Predictor(cbf16, net, devices=[dev] * n)
-        STEM_LAUNCHES.clear()
+        mark = kernel_counts()
         head = pn.forward_raw(cbig).float()
         rel = float((head - ref).abs().max() / ref.abs().max())
         if rel > CONVNEXT_SPLIT_BF16_REL or not torch.isfinite(head).all():
             raise AssertionError(f"convnext bf16 split N={n}: head off by {rel} of its max")
-        if sum(STEM_LAUNCHES.values()):
+        if kernel_counts(mark, "stem"):
             raise AssertionError("convnext launched the stem kernel")
         cnx["bf16"]["head_rel_err"][n] = rel
         if n > 1:
@@ -3310,10 +3311,10 @@ def spatial_train_phase(device_arg, imgs4, boxes4, golden, smi, *, ckpt=CKPT, da
         qc.QuantLayers.site_conv = spy
         try:
             sync()
-            ic.LAUNCHES.clear()
+            mark = kernel_counts()
             qraw = pq.rows.forward_raw(pq.shard_weights, cx4, record=rec)
             sync()
-            got = ic.LAUNCHES["int8_conv"]
+            got = sum(kernel_counts(mark, "int8_conv").values())
         finally:
             qc.QuantLayers.site_conv = site_conv
         launches["convnext_int8_spatial"][n] = got
@@ -3415,7 +3416,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from yogo_tpu_torch import kernels
     from yogo_tpu_torch.infer import Predictor
-    from yogo_tpu_torch.ops.stem import LAUNCHES, fused_stem_nchw, fused_stem_reference
+    from yogo_tpu_torch.ops.stem import fused_stem_nchw, fused_stem_reference
     from yogo_tpu_torch.utils.tracing import COUNTS
 
     def nms_per_call(before: dict) -> tuple:
@@ -3516,7 +3517,7 @@ def main() -> int:
         return per, classes, nms_per_call(before)
 
     preds = {}
-    LAUNCHES.clear()
+    mark = kernel_counts()
     for layout in ("nhwc", "nchw"):
         pred = Predictor.from_checkpoint(
             CKPT, half=True, device=dev, channels_last=layout == "nhwc"
@@ -3538,7 +3539,7 @@ def main() -> int:
                                     "nms_host_syncs": syncs,
                                     "nms_kernel_launches": nms_launches}
         preds[layout] = pred
-    launches = dict(LAUNCHES)
+    launches = kernel_counts(mark, "stem")
     log(f"stem launches on the main path: {launches}")
     for layout in ("nhwc", "nchw"):
         if launches.get(f"stem_{layout}", 0) < 1:

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from yogo_tpu_torch.ops import int8_conv as ic
+from yogo_tpu_torch.utils import tracing
 
 # (B, H, W, cin, cout, kernel, stride): odd H and W, C_in not a multiple of
 # 32 (half_filters' 8 / 24), wide (256), C_out 7 (a quantized head) and 40;
@@ -140,10 +141,10 @@ def test_pack_weights_layout():
 def test_cpu_wrapper_takes_plain_version_without_launching():
     x, w8, deq, bias = _case(2, *CASES[0][:5], 3)
     args = (_codes(x), ic.pack_weights(w8), torch.from_numpy(deq), torch.from_numpy(bias))
-    before = dict(ic.LAUNCHES)
+    before = tracing.COUNTS["int8_conv_kernel_launches"]
     got = ic.int8_conv(*args, cin=8, stride=1, padding=1, act="leaky_relu")
     want = ic.int8_conv_reference(*args, cin=8, stride=1, padding=1, act="leaky_relu")
-    assert torch.equal(got, want) and dict(ic.LAUNCHES) == before
+    assert torch.equal(got, want) and tracing.COUNTS["int8_conv_kernel_launches"] == before
 
 
 @pytest.mark.parametrize(
@@ -467,10 +468,10 @@ def test_cuda_kernel_equals_plain_version(cuda, case, act):
     kw = dict(cin=cin, stride=s, padding=pad, act=act)
     scale = torch.tensor([0.05], device="cuda")
     for out_scale in (None, scale):
-        n = ic.LAUNCHES["int8_conv"]
+        n = tracing.COUNTS["int8_conv_kernel_launches"]
         got = ic.int8_conv(*args, **kw, out_scale=out_scale)
         torch.cuda.synchronize()
-        assert ic.LAUNCHES["int8_conv"] == n + 1
+        assert tracing.COUNTS["int8_conv_kernel_launches"] == n + 1
         want = ic.int8_conv_reference(*args, **kw, out_scale=out_scale)
         assert got.shape == want.shape and got.dtype == want.dtype
         assert torch.equal(got, want), f"{case} {act} {out_scale is not None}"

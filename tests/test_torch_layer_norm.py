@@ -5,7 +5,7 @@ module (models/yogo.LayerNorm) that chooses between them.
 
 The CPU tests check what runs here: the wrapper's refusals (on `meta`
 tensors, which no kernel takes, and on a CPU tensor), the plan of lanes a
-row, the ctypes binding, and the module's plain path (equal to
+row, and the module's plain path (equal to
 `layer_norm(...).to(dtype)` bit for bit, no launch, gradients). The `cuda`
 tests need a GPU:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_layer_norm.py -m cuda
@@ -21,7 +21,6 @@ value lies within that distance of a rounding boundary: one bf16 ulp
 (2^-7 of the value at most), in a small share of the elements.
 """
 
-import ctypes
 import math
 
 import numpy as np
@@ -41,7 +40,7 @@ BF16_SHARE = 0.01  # of the elements that may differ by that ulp
 
 
 def launches() -> int:
-    return tracing.COUNTS["ln_kernel_launches"]
+    return tracing.COUNTS["layer_norm_kernel_launches"]
 
 
 # ------------------------------------------------------------------ the CPU
@@ -68,16 +67,6 @@ def test_plan_covers_every_width_and_idles_no_lane_at_the_trunks(out):
     for c in TRUNK_WIDTHS:
         tpr, ch = L.plan(c, out)
         assert tpr * ch * vec == c
-
-
-def test_sources_bind_the_layer_norm_kernel():
-    fns = kernels.SOURCES["layer_norm"]
-    assert fns["yogo_layer_norm_launch"] == (
-        ctypes.c_int,
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-    )
-    assert sorted(fns) == ["yogo_cuda_error_string", "yogo_layer_norm_launch"]
-    assert kernels._sources("layer_norm") == [kernels.CSRC_DIR / "layer_norm.cu"]
 
 
 def test_layer_norm_variants_edit_the_current_source():
@@ -289,17 +278,20 @@ def test_kernel_follows_the_current_stream_and_refuses_misaligned_rows(cuda):
 @pytest.mark.cuda
 def test_launch_refuses_a_plan_that_does_not_cover_the_row(cuda):
     """The C launcher checks the plan it is handed and launches nothing on
-    one it cannot run."""
-    lib = kernels.load("layer_norm")
+    one it cannot run: kernels.launch raises, naming the error."""
     x = torch.zeros(16, 96, device="cuda")
     w, b = torch.ones(96, device="cuda"), torch.zeros(96, device="cuda")
     y = torch.empty_like(x)
-    stream = torch.cuda.current_stream().cuda_stream
     for tpr, ch, ok in ((8, 3, True), (4, 6, True), (4, 3, False), (3, 8, False), (64, 1, False),
                         (1, 17, False)):
-        code = lib.yogo_layer_norm_launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                          16, 96, 0, 0, tpr, ch, 1e-6, stream)
-        assert (code == 0) == ok, (tpr, ch, code)
+        before = launches()
+        args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 16, 96, 0, 0, tpr, ch, 1e-6)
+        if ok:
+            kernels.launch("layer_norm", x.device, *args)
+        else:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                kernels.launch("layer_norm", x.device, *args)
+        assert launches() - before == int(ok), (tpr, ch)
 
 
 @pytest.mark.cuda

@@ -5,12 +5,11 @@ and fixed-point loop), and the count's sync-free path on the card.
 The CPU tests check what runs here: the plain version against a sequential
 float32 greedy oracle on the same cases the card tests use, the counters of
 the CPU path, the wrapper's argument checks (on `meta` tensors, which no
-kernel takes) and the kernel's ctypes binding. The `cuda` tests need a GPU:
+kernel takes). The `cuda` tests need a GPU:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_nms_kernel.py -m cuda
 This file imports no JAX.
 """
 
-import ctypes
 
 import numpy as np
 import pytest
@@ -124,18 +123,6 @@ def test_cpu_path_runs_the_loop_and_counts_it():
     assert delta["nms_kernel_launches"] == 0
 
 
-def test_sources_bind_the_nms_kernel():
-    fns = kernels.SOURCES["nms"]
-    assert fns["yogo_nms_launch"] == (
-        ctypes.c_int,
-        [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
-    )
-    assert sorted(fns) == ["yogo_cuda_error_string", "yogo_nms_launch"]
-    assert fns["yogo_cuda_error_string"] == (ctypes.c_char_p, [ctypes.c_int])
-    assert kernels._sources("nms") == [kernels.CSRC_DIR / "nms.cu"]
-
-
 @pytest.mark.parametrize("k,want", [(1, 256), (64, 5120), (65, 5632), (256, 25856), (1024, 201728)])
 def test_workspace_bytes_follow_the_kernel_s_layout(k, want):
     """An image's workspace: 69 bytes a slot, 8 a bitmask word
@@ -244,17 +231,20 @@ def test_kernel_refuses_mixed_devices_on_the_card(cuda):
 @pytest.mark.cuda
 def test_launch_refuses_a_scratch_smaller_than_b_workspaces(cuda):
     """The C launcher checks the scratch it is handed against its own
-    layout, and launches nothing on a byte less."""
+    layout, and launches nothing on a byte less: kernels.launch raises,
+    naming the error."""
     boxes, scores, valid, tb = as_torch(make_case(4, 3, 100, "random"), "cuda")
-    lib = kernels.load("nms")
     need = 3 * nms._workspace_bytes(100)
     out = torch.zeros((3, 100), dtype=torch.bool, device="cuda")
     for size, ok in ((need - 1, False), (need, True)):
         scratch = torch.empty(size, dtype=torch.uint8, device="cuda")
-        code = lib.yogo_nms_launch(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), tb.data_ptr(),
-                                   0.5, 3, 100, out.data_ptr(), scratch.data_ptr(), size,
-                                   torch.cuda.current_stream().cuda_stream)
-        assert (code == 0) == ok, (size, code)
+        args = (boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), tb.data_ptr(),
+                0.5, 3, 100, out.data_ptr(), scratch.data_ptr(), size)
+        if ok:
+            kernels.launch("nms", boxes.device, *args)
+        else:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                kernels.launch("nms", boxes.device, *args)
     want = nms.batched_nms_reference(boxes, scores, valid, 0.5, tiebreak=tb)
     np.testing.assert_array_equal(out.cpu().numpy(), want.cpu().numpy())
 

@@ -36,11 +36,17 @@ from tests.test_golden_detections import gen_test_images
 from yogo_tpu_torch.infer import Predictor
 from yogo_tpu_torch.ops.postprocess import _cxcywh_to_xyxy_np, format_preds
 from yogo_tpu_torch.serve import Overloaded, _Batcher, build_server
+from yogo_tpu_torch.utils import tracing
 
 REPO = Path(__file__).resolve().parent.parent
 CKPT = REPO / "tests" / "goldens" / "trained_half_filters.ckpt"
 CLASSES = ["cell", "parasite"]
 TIMEOUT = 60
+
+
+def kernel_builds() -> dict:
+    """The nvcc runs so far, by counter (utils/tracing.COUNTS)."""
+    return {k: n for k, n in tracing.COUNTS.items() if k.endswith("_kernel_builds")}
 
 
 def png_bytes(img_hw_u8: np.ndarray) -> bytes:
@@ -637,7 +643,6 @@ def test_quantized_server_answers_equal_its_int8_predictor_and_reloads(request, 
     Predictor.forward of a batch of the server's shape; a reload
     recalibrates (a new program, the same answers) and builds no kernel."""
     from tests.test_golden_fullres import gen_test_images as gen_fullres
-    from yogo_tpu_torch import kernels
     from yogo_tpu_torch.data.image_source import get_dataset
 
     gen_fullres(tmp_path / "calib", n=2)
@@ -659,10 +664,10 @@ def test_quantized_server_answers_equal_its_int8_predictor_and_reloads(request, 
                      min_class_confidence_threshold=0.0) for f in frames]
     before = answers()
     assert before == want and sum(a["counts"]["cell"] + a["counts"]["parasite"] for a in before) > 0
-    builds = dict(kernels.BUILDS)
+    builds = kernel_builds()
     assert srv.reload_checkpoint()["ok"] is True
     assert srv.yogo_state["predictor"] is not pred and srv.yogo_state["predictor"].qp is not pred.qp
-    assert answers() == before and dict(kernels.BUILDS) == builds
+    assert answers() == before and kernel_builds() == builds
     assert get(port, "/healthz")["reloads"] == 1
 
 

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from tests.test_golden_detections import gen_test_images
-from tests.test_torch_serve import CKPT, CLASSES, TIMEOUT, post, start
+from tests.test_torch_serve import CKPT, CLASSES, TIMEOUT, kernel_builds, post, start
 from yogo_tpu_torch import kernels
 from yogo_tpu_torch.serve_client import ServeClient, ServerOverloaded
 
@@ -173,7 +173,7 @@ def test_hot_reload_swaps_weights_without_a_rebuild(request, tmp_path, frames):
         before = c.predict(frames[0])
         old = srv.yogo_state["predictor"].stack
         old_weights = {k: v.clone() for k, v in old.state_dict().items()}
-        builds, loaded = dict(kernels.BUILDS), dict(kernels._loaded)
+        builds, loaded = kernel_builds(), dict(kernels._loaded)
 
         bumped = {g: {n: {leaf: np.asarray(a) * 1.1 for leaf, a in leaves.items()}
                       for n, leaves in tree.items()} for g, tree in variables.items()}
@@ -185,7 +185,7 @@ def test_hot_reload_swaps_weights_without_a_rebuild(request, tmp_path, frames):
         assert srv.yogo_state["predictor"].stack is not old
         for k, v in old.state_dict().items():
             assert torch.equal(v, old_weights[k]), k  # never written in place
-        assert dict(kernels.BUILDS) == builds and dict(kernels._loaded) == loaded
+        assert kernel_builds() == builds and dict(kernels._loaded) == loaded
 
         other = YOGO.create(model.img_size, 0.04, 0.05, num_classes=5)
         stack = other.init(torch.Generator().manual_seed(0), device="cpu")

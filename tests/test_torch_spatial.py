@@ -332,15 +332,15 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
 def test_cuda_shards_on_one_card_launch_the_stem_once_each(cuda, fullres, n):
-    from yogo_tpu_torch.ops import stem
+    from yogo_tpu_torch.utils import tracing
 
     x = fullres[1]
     pred1 = Predictor.from_checkpoint(BASE_CKPT, half=True, device="cuda:0")
     pred = Predictor.from_checkpoint(BASE_CKPT, half=True, devices=["cuda:0"] * n)
-    stem.LAUNCHES.clear()
+    before = tracing.COUNTS["stem_nhwc_kernel_launches"]
     raw = pred.forward_raw(x)
     torch.cuda.synchronize()
-    assert stem.LAUNCHES["stem_nhwc"] == n
+    assert tracing.COUNTS["stem_nhwc_kernel_launches"] - before == n
     raw1 = pred1.forward_raw(x)
     for i in range(4):
         m = torch.arange(4) == i

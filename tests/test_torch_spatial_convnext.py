@@ -43,6 +43,7 @@ from yogo_tpu_torch.models.yogo import YOGO
 from yogo_tpu_torch.ops import quant_convnext as qc
 from yogo_tpu_torch.parallel import spatial
 from yogo_tpu_torch.train import TrainState, make_optimizer, make_train_step
+from yogo_tpu_torch.utils import tracing
 from yogo_tpu_torch.utils.checkpoint import save_checkpoint
 from yogo_tpu_torch.utils.weights import flax_from_state_dict
 
@@ -253,10 +254,10 @@ def test_cuda_int8_conv_per_shard_launches_71_n_and_each_equals_the_unsplit_laun
     seen = shard_site_outputs(monkeypatch)
     pred = Predictor(model, net, qp=qp, devices=[dev] * n)
     rec = []
-    ic.LAUNCHES.clear()
+    before = tracing.COUNTS["int8_conv_kernel_launches"]
     pred.rows.forward_raw(pred.shard_weights, x, record=rec)
     torch.cuda.synchronize()
-    assert ic.LAUNCHES["int8_conv"] == 71 * n
+    assert tracing.COUNTS["int8_conv_kernel_launches"] - before == 71 * n
     for (key, _), codes in zip(qc.quant_sites(), rec):
         blk = qp["int8"][key]
         stride = 2 if key.startswith("down") else 1

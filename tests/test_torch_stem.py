@@ -9,13 +9,24 @@ Tolerance: 1 bf16 ulp (rtol 8e-3, atol 1e-2) - both sides accumulate in
 f32 in a different order and round once to bf16.
 """
 
+import ctypes
+import re
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from yogo_tpu_torch import kernels
 from yogo_tpu_torch.ops import stem
+from yogo_tpu_torch.utils import tracing
 
 RTOL, ATOL = 8e-3, 1e-2
+
+
+def launches() -> dict:
+    """The stem kernel's launches so far, by layout."""
+    return {layout: tracing.COUNTS[f"stem_{layout}_kernel_launches"] for layout in stem.LAYOUTS}
 
 
 def _params(seed: int, c: int = 16, bias: bool = False, bn: bool = True):
@@ -108,11 +119,11 @@ def test_reference_matches_flax_block0():
 def test_cpu_wrapper_takes_plain_version_without_launching():
     w, b = _fold_torch(_params(5))
     imgs = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (1, 8, 10), np.uint8))
-    before = dict(stem.LAUNCHES)
+    before = launches()
     for layout in stem.LAYOUTS:
         got = stem.fused_stem_nchw(imgs, w, b, layout=layout)
         assert torch.equal(got, stem.fused_stem_reference(imgs, w, b, layout=layout))
-    assert dict(stem.LAUNCHES) == before
+    assert launches() == before
 
 
 @pytest.mark.parametrize(
@@ -160,10 +171,10 @@ def test_cuda_kernel_matches_plain_version(cuda, c, layout):
     assert misaligned.is_contiguous() and misaligned.data_ptr() % 16 == 8
     fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
     for x in cases + [misaligned]:
-        n = stem.LAUNCHES[f"stem_{layout}"]
+        n = launches()
         got = stem.fused_stem_nchw(x, w, b, layout=layout)
         torch.cuda.synchronize()
-        assert stem.LAUNCHES[f"stem_{layout}"] == n + 1
+        assert launches() == {**n, layout: n[layout] + 1}
         want = stem.fused_stem_reference(x, w, b, layout=layout)
         assert got.shape == want.shape and got.is_contiguous(memory_format=fmt)
         torch.testing.assert_close(got.float(), want.float(), rtol=RTOL, atol=ATOL,
@@ -202,6 +213,77 @@ def test_build_runs_nvcc_for_sm90a_into_a_hashed_library(tmp_path, monkeypatch):
     args.unlink()
     kernels.build_all()  # already built: nvcc is not run again
     assert not args.exists()
+
+
+class _FakeLib:
+    """Stands in for ctypes.CDLL where no kernel library can be built (no
+    nvcc): every symbol exists, as an object ctypes would type."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, symbol):
+        fn = types.SimpleNamespace()
+        setattr(self, symbol, fn)
+        return fn
+
+
+_C_KINDS = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SOURCES))
+def test_sources_bind_each_kernel_s_launch_entry(tmp_path, monkeypatch, name):
+    """kernels.SOURCES[name] has the argument kinds of the extern "C"
+    prototype of yogo_<name>_launch in csrc/<name>.cu, the stream last, and
+    load binds that entry and yogo_cuda_error_string, once."""
+    src = (kernels.CSRC_DIR / f"{name}.cu").read_text()
+    params = [" ".join(p.split()) for p in re.search(
+        rf'extern "C" int yogo_{name}_launch\(([^)]*)\)', src).group(1).split(",")]
+    kinds = [ctypes.c_void_p if "*" in p else _C_KINDS[p.rsplit(" ", 1)[0]] for p in params]
+    assert kernels.SOURCES[name] == kinds and params[-1] == "void* stream"
+    assert kernels._sources(name) == [kernels.CSRC_DIR / f"{name}.cu"]
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_loaded", {})
+    monkeypatch.setattr(kernels.ctypes, "CDLL", _FakeLib)
+    kernels._lib_path(name).touch()
+    kernels._log_path(name).touch()
+    lib = kernels.load(name)
+    assert lib.path == str(kernels._lib_path(name)) and kernels.load(name) is lib
+    entry = getattr(lib, f"yogo_{name}_launch")
+    assert (entry.restype, entry.argtypes) == (ctypes.c_int, kinds)
+    err = lib.yogo_cuda_error_string
+    assert (err.restype, err.argtypes) == (ctypes.c_char_p, [ctypes.c_int])
+
+
+def test_variants_build_as_the_sources_do(tmp_path, monkeypatch):
+    """tools/timing.build_variants runs nvcc as build_all does (the same
+    flags, a build counted), into _build/variants/<source>/, keeps nvcc's
+    output beside each library and binds it as load does."""
+    from yogo_tpu_torch.tools.timing import build_variants
+
+    args = tmp_path / "args"
+    nvcc = _fake_nvcc(tmp_path, (
+        f'echo "$@" >> {args}\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && touch "$2"; shift; done\n'
+        'echo "ptxas info: 40 registers"\n'
+    ))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "find_nvcc", lambda: nvcc)
+    monkeypatch.setattr(kernels.ctypes, "CDLL", _FakeLib)
+    before = tracing.COUNTS["stem_kernel_builds"]
+    libs = build_variants("stem", {"kernel": [], "slope": [("float slope, void*", "float slope,  void*")]})
+    assert tracing.COUNTS["stem_kernel_builds"] - before == 2
+    out_dir = tmp_path / "build" / "variants" / "stem"
+    assert sorted(p.name for p in out_dir.iterdir()) == [
+        "kernel.cu", "kernel.log", "kernel.so", "slope.cu", "slope.log", "slope.so"]
+    assert (out_dir / "kernel.cu").read_text() == (kernels.CSRC_DIR / "stem.cu").read_text()
+    for run in args.read_text().splitlines():
+        assert " ".join(kernels.NVCC_FLAGS) in run and run.endswith(".cu")
+    for name, (lib, log) in libs.items():
+        assert lib.path == str(out_dir / f"{name}.so") and "40 registers" in log
+        assert lib.yogo_stem_launch.argtypes == kernels.SOURCES["stem"]
+        assert lib.yogo_cuda_error_string.restype is ctypes.c_char_p
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):

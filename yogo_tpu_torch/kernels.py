@@ -1,8 +1,8 @@
-"""Build and bind the port's CUDA kernels.
+"""Build, bind, launch and count the port's CUDA kernels.
 
-Each `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into its
-own shared library with a plain C interface, and loaded with `ctypes` - no
-PyTorch headers, so a build takes seconds. Libraries go to
+Each `csrc/<name>.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into
+its own shared library with a plain C interface, and loaded with `ctypes` -
+no PyTorch headers, so a build takes seconds. Libraries go to
 `yogo_tpu_torch/_build/` (git-ignored), named by a hash of the sources (the
 `.cu` and every `csrc/` header it includes) and the flags, so a stale build
 is never loaded. nvcc's output (ptxas's register and spill report) is
@@ -10,6 +10,13 @@ kept beside each library, so `build_log` reads it whether this process
 built the library or found it built. Nothing is built at import: the
 first call that needs a kernel builds it, and `build_all()` builds every
 source at once, one `nvcc` process each, all started together.
+
+Each source exports one launch entry, `yogo_<name>_launch(..., stream)`,
+which returns a CUDA error code, and `yogo_cuda_error_string(code)`.
+`launch` is the one way the ops call them: on the caller's device and
+current stream, raising on an error code. The counters are
+utils/tracing.COUNTS': `<name>_kernel_builds` counts nvcc runs and
+`<name>_kernel_launches` launches (the stem's per layout).
 """
 
 from __future__ import annotations
@@ -21,9 +28,12 @@ import re
 import shutil
 import subprocess
 import threading
-from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+
+from yogo_tpu_torch.utils import tracing
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -34,47 +44,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# source stem -> C functions it exports, with their ctypes signatures
-SOURCES: Dict[str, Dict[str, tuple]] = {
-    "stem": {
-        "yogo_stem_launch": (
-            ctypes.c_int,
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
-        ),
-        "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
-    },
-    "int8_conv": {
-        "yogo_int8_conv_launch": (
-            ctypes.c_int,
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-        ),
-        "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
-    },
-    "nms": {
-        "yogo_nms_launch": (
-            ctypes.c_int,
-            [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
-        ),
-        "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
-    },
-    "layer_norm": {
-        "yogo_layer_norm_launch": (
-            ctypes.c_int,
-            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_void_p],
-        ),
-        "yogo_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
-    },
+# source stem -> the argtypes of its launch entry yogo_<name>_launch (which
+# returns an int), the stream handle last
+SOURCES: Dict[str, list] = {
+    "stem": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    "int8_conv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    "nms": [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+    "layer_norm": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_void_p],
 }
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# nvcc runs started by this process, by source: a library is built once
-# and loaded once, whatever reloads a caller does
-BUILDS: Counter = Counter()
 
 
 def find_nvcc() -> str:
@@ -103,14 +85,20 @@ def _sources(name: str) -> list:
     return sorted(seen)
 
 
+def hashed_lib(stem: str, files: Iterable[Path], flags: Sequence[str]) -> Path:
+    """BUILD_DIR/lib<stem>-<hash>.so, the hash over the names and bytes of
+    `files` and the compiler `flags`: a stale build is never loaded."""
+    h = hashlib.sha256()
+    for path in files:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
 def _lib_path(name: str) -> Path:
     """The library of csrc/<name>.cu, named by a hash of its sources (the
     .cu and the headers it includes) and the compiler flags."""
-    h = hashlib.sha256()
-    for path in _sources(name):
-        h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return hashed_lib(name, _sources(name), NVCC_FLAGS)
 
 
 def _log_path(name: str) -> Path:
@@ -118,38 +106,53 @@ def _log_path(name: str) -> Path:
     return _lib_path(name).with_suffix(".log")
 
 
+def compile_libs(jobs: Dict[str, Tuple[Sequence[str], Path]]) -> None:
+    """Run every job's compiler command (key -> (command, library path)),
+    all at once, each with `-o` to a name of its own that is renamed onto
+    the library when it succeeds, and its output kept beside the library
+    as <library>.log, renamed too: no process loads a half-written library
+    or reads a half-written log. Raises with the output of every failed
+    command."""
+    procs = {}
+    for key, (cmd, lib) in jobs.items():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        procs[key] = (lib, tmp, subprocess.Popen(
+            [cmd[0], "-o", str(tmp), *cmd[1:]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    errors = []
+    for key, (lib, tmp, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{Path(p.args[0]).name} failed for {key}:\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            tmp_log = tmp.with_suffix(".log")
+            tmp_log.write_text(out)
+            os.replace(tmp_log, lib.with_suffix(".log"))
+            os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def nvcc(jobs: Dict[str, Tuple[str, Path, Path]]) -> None:
+    """compile_libs with nvcc and NVCC_FLAGS: key -> (source name, .cu
+    file, library path). Each run adds one to <source>_kernel_builds."""
+    if not jobs:
+        return
+    cmd = [find_nvcc(), *NVCC_FLAGS]
+    for name, _, _ in jobs.values():
+        tracing.add(**{f"{name}_kernel_builds": 1})
+    compile_libs({key: ([*cmd, str(cu)], lib) for key, (_, cu, lib) in jobs.items()})
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> None:
     """Compile the named sources (default: all) that are not built yet (no
     library, or no compiler output beside it), one nvcc per source,
     concurrently. Raises with the compiler output if any build fails."""
     with _lock:
-        todo = [n for n in (SOURCES if names is None else names)
-                if not (_lib_path(n).exists() and _log_path(n).exists())]
-        if not todo:
-            return
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for n in todo:
-            tmp = _lib_path(n).with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
-            BUILDS[n] += 1
-            procs[n] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ))
-        errors = []
-        for n, (tmp, p) in procs.items():
-            out, _ = p.communicate()
-            if p.returncode != 0:
-                errors.append(f"nvcc failed for csrc/{n}.cu:\n{out}")
-                tmp.unlink(missing_ok=True)
-            else:  # each file atomic: no half-written library or log
-                tmp_log = tmp.with_suffix(".log")
-                tmp_log.write_text(out)
-                os.replace(tmp_log, _log_path(n))
-                os.replace(tmp, _lib_path(n))
-        if errors:
-            raise RuntimeError("\n".join(errors))
+        nvcc({n: (n, CSRC_DIR / f"{n}.cu", _lib_path(n)) for n in (SOURCES if names is None else names)
+              if not (_lib_path(n).exists() and _log_path(n).exists())})
 
 
 def build_log(name: str) -> str:
@@ -159,22 +162,40 @@ def build_log(name: str) -> str:
     return _log_path(name).read_text()
 
 
+def bind(name: str, path: Path) -> ctypes.CDLL:
+    """The library at `path`, built from csrc/<name>.cu (or a variant of
+    it), with yogo_<name>_launch and yogo_cuda_error_string typed."""
+    lib = ctypes.CDLL(str(path))
+    entry = getattr(lib, f"yogo_{name}_launch")
+    entry.restype, entry.argtypes = ctypes.c_int, SOURCES[name]
+    lib.yogo_cuda_error_string.restype, lib.yogo_cuda_error_string.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed, with
-    argtypes/restype set for every exported function."""
+    """The bound library of csrc/<name>.cu, built and loaded once."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
     build_all([name])
     with _lock:
         if name not in _loaded:
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn, (restype, argtypes) in SOURCES[name].items():
-                f = getattr(lib, fn)
-                f.restype = restype
-                f.argtypes = argtypes
-            _loaded[name] = lib
+            _loaded[name] = bind(name, _lib_path(name))
         return _loaded[name]
+
+
+def launch(name: str, device, *args, counter: Optional[str] = None) -> None:
+    """Call yogo_<name>_launch(*args, stream) of csrc/<name>.cu on `device`
+    (a CUDA device), with the handle of its current stream: the kernel is
+    queued there, nothing waits. Raises with the CUDA error a non-zero code
+    names; else adds one to `<counter or name>_kernel_launches`."""
+    lib = load(name)
+    with torch.cuda.device(device):
+        code = getattr(lib, f"yogo_{name}_launch")(*args, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        msg = lib.yogo_cuda_error_string(code).decode()
+        raise RuntimeError(f"the {name} kernel failed to launch: CUDA error {code} ({msg})")
+    tracing.add(**{f"{counter or name}_kernel_launches": 1})
 
 
 _SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([^;]*);")
@@ -269,10 +290,3 @@ def sass_summary(name: str, dump: Optional[Path] = None) -> Dict[str, dict]:
     if dump is not None:
         dump.write_text(text)
     return parse_sass(text)
-
-
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
-    if code != 0:
-        msg = lib.yogo_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({msg})")

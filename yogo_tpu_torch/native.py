@@ -2,7 +2,8 @@
 libjpeg decode + antialias resize, batch decode, label parser).
 
 Builds the shared library on first use with g++ into `_build/` next to the
-CUDA kernels' libraries, named by a hash of the source and the flags; every
+CUDA kernels' libraries, named and written as kernels names and writes
+theirs (a hash of the source and the flags; renamed into place); every
 entry point is gated - callers fall back to the PIL/python paths when the
 toolchain or the image libraries' headers are unavailable. This is host
 code: the gate does not apply to the CUDA kernels (kernels.py), which
@@ -12,16 +13,14 @@ build or raise.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from yogo_tpu_torch.kernels import BUILD_DIR, CSRC_DIR
+from yogo_tpu_torch.kernels import CSRC_DIR, compile_libs, hashed_lib
 
 _SRC = CSRC_DIR / "yogo_host.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -32,27 +31,16 @@ _tried = False
 
 
 def _lib_path() -> Path:
-    """The library, named by a hash of its source and the compiler flags
-    (the scheme of kernels._lib_path), so a stale build is never loaded."""
-    h = hashlib.sha256()
-    h.update(_SRC.name.encode() + b"\0" + _SRC.read_bytes())
-    h.update(" ".join(GXX_FLAGS + GXX_LIBS).encode())
-    return BUILD_DIR / f"libyogo_host-{h.hexdigest()[:16]}.so"
+    return hashed_lib("yogo_host", [_SRC], GXX_FLAGS + GXX_LIBS)
 
 
 def _build(lib_path: Path) -> bool:
-    # compile to a process-unique temp path then rename: concurrent first
-    # builds from several processes must never leave a half-written .so
-    # that a sibling dlopens (os.replace is atomic on the same filesystem)
-    tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = ["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp), *GXX_LIBS]
+    """g++ into lib_path, renamed into place (several processes may build
+    it at once); False where it fails."""
     try:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, lib_path)
+        compile_libs({"yogo_host": (["g++", *GXX_FLAGS, str(_SRC), *GXX_LIBS], lib_path)})
         return True
-    except (subprocess.SubprocessError, FileNotFoundError, OSError):
-        tmp.unlink(missing_ok=True)
+    except (RuntimeError, OSError):
         return False
 
 

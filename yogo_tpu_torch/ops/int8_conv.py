@@ -22,13 +22,12 @@ shared-memory layout, the im2col box corners, traversal stride and tap
 offsets); the C entry recomputes it, refuses any other, and launches it.
 `int8_conv` launches the kernel for CUDA tensors and runs the plain
 PyTorch version `int8_conv_reference` (exact integer accumulation in
-float64) for CPU tensors; nothing else falls back. `LAUNCHES` counts
-kernel launches.
+float64) for CPU tensors; nothing else falls back. Each launch adds one to
+utils/tracing.COUNTS' `int8_conv_kernel_launches`.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from dataclasses import astuple, dataclass, fields
 from typing import Iterator, Optional, Tuple
 
@@ -45,9 +44,6 @@ ACTS = {None: 0, "leaky_relu": 1, "silu": 2}
 # (kernel, stride, padding) the kernel is built for: the conv-stack blocks,
 # ConvNeXt's Dense layers (1x1) and its 2x2 stride-2 downsamples
 SHAPES = ((3, 1, 1), (3, 2, 1), (1, 1, 0), (2, 2, 0))
-
-# kernel launches by name ("int8_conv"); reset with .clear()
-LAUNCHES: Counter = Counter()
 
 # ---- the launch plan (csrc/int8_conv.cu reads it in this field order and
 # checks every field)
@@ -338,15 +334,10 @@ def _launch(q, w_packed, deq, bias, out_scale, *, stride, padding, act, plan: La
     else:
         out = torch.empty((bsz, ho, wo, padded_channels(cout)), dtype=torch.int8, device=q.device)
     arr = plan.to_array()
-    lib = kernels.load("int8_conv")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.yogo_int8_conv_launch(
-            q.data_ptr(), w_packed.data_ptr(), deq.data_ptr(), bias.data_ptr(),
-            out_scale.data_ptr() if out_scale is not None else None, out.data_ptr(),
-            bsz, h, w, cp, cout, k, stride, padding, ACTS[act], int(out_scale is not None),
-            arr.ctypes.data, len(arr), stream,
-        )
-    kernels.check(lib, code, "int8 conv kernel")
-    LAUNCHES["int8_conv"] += 1
+    kernels.launch(
+        "int8_conv", q.device, q.data_ptr(), w_packed.data_ptr(), deq.data_ptr(), bias.data_ptr(),
+        out_scale.data_ptr() if out_scale is not None else None, out.data_ptr(),
+        bsz, h, w, cp, cout, k, stride, padding, ACTS[act], int(out_scale is not None),
+        arr.ctypes.data, len(arr),
+    )
     return out

@@ -9,7 +9,7 @@ one pass: each row read once, written once in the dtype its consumer reads.
 `layer_norm_cuda` takes rows of C contiguous elements (C a multiple of 8 in
 [8, 1536]), bf16 or f32 in, f32 weight and bias, bf16 or f32 out. It raises
 on anything else and never falls back. Each launch adds one to
-utils/tracing.COUNTS["ln_kernel_launches"].
+utils/tracing.COUNTS["layer_norm_kernel_launches"].
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from typing import Tuple
 import torch
 
 from yogo_tpu_torch import kernels
-from yogo_tpu_torch.utils import tracing
 
 MAX_C = 1536
 MAX_ELEMS = 64  # elements a lane holds (csrc/layer_norm.cu MAX_ELEMS)
@@ -84,13 +83,6 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, e
     if rows == 0:
         return out
     tpr, ch = plan(c, out_dtype)
-    lib = kernels.load("layer_norm")
-    with torch.cuda.device(x.device):
-        code = lib.yogo_layer_norm_launch(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), rows, c,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), tpr, ch, float(eps),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kernels.check(lib, code, "LayerNorm kernel")
-    tracing.add(ln_kernel_launches=1)
+    kernels.launch("layer_norm", x.device, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                   rows, c, int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), tpr, ch, float(eps))
     return out

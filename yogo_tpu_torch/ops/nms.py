@@ -181,16 +181,10 @@ def batched_nms(
     if b == 0:
         return out
     boxes, scores, valid, tiebreak = (t.contiguous() for t in (boxes, scores, valid, tiebreak))
-    lib = kernels.load("nms")
     scratch = torch.empty(b * _workspace_bytes(k), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.yogo_nms_launch(
-            boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), tiebreak.data_ptr(),
-            float(iou_threshold), b, k, out.data_ptr(), scratch.data_ptr(), scratch.numel(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kernels.check(lib, code, "NMS kernel")
-    tracing.add(nms_calls=1, nms_kernel_launches=1)
+    kernels.launch("nms", dev, boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), tiebreak.data_ptr(),
+                   float(iou_threshold), b, k, out.data_ptr(), scratch.data_ptr(), scratch.numel())
+    tracing.add(nms_calls=1)
     return out
 
 

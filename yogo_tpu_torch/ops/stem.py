@@ -11,12 +11,12 @@ of the conv stacks; here they are one hand-written CUDA kernel
 
 `fused_stem_nchw` launches the kernel for CUDA tensors and runs the plain
 PyTorch version `fused_stem_reference` (the same f32 math) for CPU tensors;
-nothing else falls back. `LAUNCHES` counts kernel launches per layout.
+nothing else falls back. Each launch adds one to utils/tracing.COUNTS'
+`stem_<layout>_kernel_launches`.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -28,9 +28,6 @@ LAYOUTS = ("nchw", "nhwc")
 # block-0 widths csrc/stem.cu is instantiated for (the registry's scaled
 # stacks: quarter/half/base/double/triple filters, and the depth_ver_* stems)
 STEM_CHANNELS = (4, 8, 16, 32, 48)
-
-# kernel launches by name ("stem_nchw" / "stem_nhwc"); reset with .clear()
-LAUNCHES: Counter = Counter()
 
 
 def fold_stem_params(
@@ -119,19 +116,12 @@ def fused_stem_nchw(
     c = w.shape[0]
     if c not in STEM_CHANNELS:
         raise ValueError(f"stem kernel has no build for {c} channels")
-    lib = kernels.load("stem")
     fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
     out = torch.empty(
         (bsz, c, h // 2, wd // 2), dtype=torch.bfloat16, device=images.device,
         memory_format=fmt,
     )
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.yogo_stem_launch(
-            images.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            bsz, h, wd, c, int(layout == "nhwc"), float(negative_slope), stream,
-        )
-    kernels.check(lib, code, "stem kernel")
-    LAUNCHES[f"stem_{layout}"] += 1
+    kernels.launch("stem", images.device, images.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                   bsz, h, wd, c, int(layout == "nhwc"), float(negative_slope), counter=f"stem_{layout}")
     return out
 

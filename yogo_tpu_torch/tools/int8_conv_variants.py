@@ -27,10 +27,9 @@ from pathlib import Path
 
 import torch
 
-from yogo_tpu_torch import kernels
 from yogo_tpu_torch.ops import int8_conv as ic
 from yogo_tpu_torch.tools.int8_conv_sites import SITES, site_args
-from yogo_tpu_torch.tools.timing import build_variants, card, cuda_ms
+from yogo_tpu_torch.tools.timing import as_kernel, build_variants, card, cuda_ms
 
 _LOADS = """          mbar_expect_tx(bar, pl.ring_stage_bytes);
           if (pl.route == ROUTE_IM2COL)
@@ -194,19 +193,15 @@ def _spills(log: str) -> dict:
 def _as_kernel(name: str, lib):
     """Inside the block, ops.int8_conv launches variant `name`'s `lib`
     (kernels.load returns it) with its plan constants."""
-    saved = kernels._loaded.get("int8_conv"), {k: getattr(ic, k) for k in PLAN_CONSTANTS.get(name, {})}
-    kernels._loaded["int8_conv"] = lib
+    saved = {k: getattr(ic, k) for k in PLAN_CONSTANTS.get(name, {})}
     for k, v in PLAN_CONSTANTS.get(name, {}).items():
         setattr(ic, k, v)
     try:
-        yield
+        with as_kernel("int8_conv", lib):
+            yield
     finally:
-        for k, v in saved[1].items():
+        for k, v in saved.items():
             setattr(ic, k, v)
-        if saved[0] is None:
-            kernels._loaded.pop("int8_conv")
-        else:
-            kernels._loaded["int8_conv"] = saved[0]
 
 
 def main(argv=None) -> int:

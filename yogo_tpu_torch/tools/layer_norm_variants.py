@@ -7,8 +7,9 @@ Each variant is csrc/layer_norm.cu with a few text edits (every anchor must
 occur in the source exactly once, or the script stops), built with the
 port's nvcc flags into yogo_tpu_torch/_build/variants/layer_norm/, all
 builds at once (their seconds reported: the kernel's build is part of the
-program's set-up), and launched through its own C entry point on seeded
-rows with ops/layer_norm.plan's lanes. Every variant computes the same
+program's set-up), and launched through kernels.launch with the variant's
+library in place of the kernel's on seeded rows with ops/layer_norm.plan's
+lanes. Every variant computes the same
 arithmetic in the same order, so each output must equal the kernel's bit
 for bit. Times are CUDA-event medians of 10 reps of 20 back-to-back
 launches; the variants take turns, two rounds. Beside them, a yardstick of
@@ -26,8 +27,9 @@ from pathlib import Path
 
 import torch
 
+from yogo_tpu_torch import kernels
 from yogo_tpu_torch.ops.layer_norm import plan
-from yogo_tpu_torch.tools.timing import MEM_RATE, build_variants, card, cuda_ms, rate
+from yogo_tpu_torch.tools.timing import MEM_RATE, as_kernel, build_variants, card, cuda_ms, rate
 
 BF16, F32 = torch.bfloat16, torch.float32
 # (C, rows, input dtype, output dtype, launches a forward by trunk)
@@ -73,7 +75,6 @@ def main() -> int:
     build_s = time.time() - t0
     print(f"built {len(libs)} variants at once in {build_s:.1f} s", flush=True)
     mem_rate = rate(MEM_RATE, torch.cuda.get_device_name(0))
-    stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device="cuda").manual_seed(0)
     report = {"device": smi, "build_s_all_at_once": build_s, "shapes": []}
     for c, rows, xd, od, launches in SHAPES:
@@ -84,10 +85,9 @@ def main() -> int:
         tpr, ch = plan(c, od)
 
         def launch(lib):
-            code = lib.yogo_layer_norm_launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), rows, c,
-                                              int(xd == BF16), int(od == BF16), tpr, ch, 1e-6, stream)
-            if code:
-                raise RuntimeError(f"launch failed: CUDA error {code}")
+            with as_kernel("layer_norm", lib):
+                kernels.launch("layer_norm", x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                               rows, c, int(xd == BF16), int(od == BF16), tpr, ch, 1e-6)
 
         launch(libs["kernel"][0])
         want = y.clone()

@@ -5,8 +5,8 @@
 Each variant is csrc/stem.cu with a few text edits (every anchor must occur
 in the source exactly once, or the script stops), built with the port's nvcc
 flags into yogo_tpu_torch/_build/variants/stem/, all builds at once, and launched
-through its own C entry point at B=64, 772x1032, C=16 on random uint8 images,
-in both layouts. The variants that still compute the stem are held against
+through kernels.launch with the variant's library in place of the kernel's at
+B=64, 772x1032, C=16 on random uint8 images, in both layouts. The variants that still compute the stem are held against
 fused_stem_reference (rtol 8e-3, atol 1e-2). Times are CUDA-event medians of
 10 reps of 20 back-to-back launches; the variants take turns, two rounds.
 Beside them, two yardsticks of the card's memory: torch's zero_ of a 408 MB
@@ -22,8 +22,9 @@ from pathlib import Path
 
 import torch
 
+from yogo_tpu_torch import kernels
 from yogo_tpu_torch.ops.stem import fused_stem_reference
-from yogo_tpu_torch.tools.timing import build_variants, card, cuda_ms
+from yogo_tpu_torch.tools.timing import as_kernel, build_variants, card, cuda_ms
 
 B, H, W, C = 64, 772, 1032, 16
 RTOL, ATOL = 8e-3, 1e-2
@@ -58,9 +59,9 @@ VARIANTS = {
 
 
 def build() -> dict:
-    """The variants' C entry points."""
+    """The variants' libraries."""
     libs = build_variants("stem", {name: edits for name, (edits, _, _) in VARIANTS.items()})
-    return {name: lib.yogo_stem_launch for name, (lib, _) in libs.items()}
+    return {name: lib for name, (lib, _) in libs.items()}
 
 
 def main() -> int:
@@ -76,13 +77,11 @@ def main() -> int:
     bias = torch.randn(C, device="cuda", generator=g)
     # room for the padded planes of plane_pitch_128
     out = torch.empty(B * C * ((H // 2) * (W // 2) + 64), dtype=torch.bfloat16, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
 
-    def launch(f, layout, xs=x):
-        code = f(xs.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 xs.shape[0], H, W, C, int(layout == "nhwc"), 0.01, stream)
-        if code:
-            raise RuntimeError(f"launch failed: CUDA error {code}")
+    def launch(lib, layout, xs=x):
+        with as_kernel("stem", lib):
+            kernels.launch("stem", xs.device, xs.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                           xs.shape[0], H, W, C, int(layout == "nhwc"), 0.01)
 
     report = {"device": smi, "shape": [B, H, W, C], "variants": {}, "yardsticks": {}}
     for name, f in libs.items():

@@ -1,14 +1,15 @@
 """What the port's measurements share: the card's rates, a CUDA-event
 timer, the card's name and power limit, and text-edited builds of a kernel
-source (the variant scripts: tools/stem_variants.py,
-tools/int8_conv_variants.py).
+source with the seam that launches one (the variant scripts:
+tools/stem_variants.py, tools/int8_conv_variants.py,
+tools/layer_norm_variants.py).
 """
 
 from __future__ import annotations
 
-import ctypes
 import statistics
 import subprocess
+from contextlib import contextmanager
 
 import torch
 
@@ -69,27 +70,30 @@ def variant_source(src: str, edits) -> str:
 
 def build_variants(source: str, variants: dict) -> dict:
     """Build csrc/<source>.cu with each variant's edits (name -> edits) into
-    yogo_tpu_torch/_build/variants/<source>/ with the port's nvcc flags,
-    all at once. Returns name ->
-    (the loaded library, its exported functions typed as in
-    kernels.SOURCES[source]; nvcc's output)."""
+    yogo_tpu_torch/_build/variants/<source>/, all at once, as kernels builds
+    the source itself. Returns name -> (the library, bound as kernels.load
+    binds the source's; nvcc's output)."""
     src = (kernels.CSRC_DIR / f"{source}.cu").read_text()
     out_dir = kernels.BUILD_DIR / "variants" / source
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
     for name, edits in variants.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(variant_source(src, edits))
-        procs[name] = subprocess.Popen(
-            [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        for fn, (restype, argtypes) in kernels.SOURCES[source].items():
-            getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
-        libs[name] = (lib, log)
-    return libs
+        (out_dir / f"{name}.cu").write_text(variant_source(src, edits))
+    kernels.nvcc({name: (source, out_dir / f"{name}.cu", out_dir / f"{name}.so") for name in variants})
+    return {name: (kernels.bind(source, out_dir / f"{name}.so"), (out_dir / f"{name}.log").read_text())
+            for name in variants}
+
+
+@contextmanager
+def as_kernel(source: str, lib):
+    """Inside the block, kernels.load(source) returns `lib` (a variant's
+    library from build_variants), so kernels.launch and the op that wraps
+    it run the variant."""
+    saved = kernels._loaded.get(source)
+    kernels._loaded[source] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            kernels._loaded.pop(source)
+        else:
+            kernels._loaded[source] = saved

@@ -20,13 +20,19 @@ records nothing, as the profiler records nothing there.
 bumps them under a lock, and while a profiler is active also the
 window's counters that `counts()` returns.
 
+    <name>_kernel_launches  launches of csrc/<name>.cu (kernels.launch; 0 on the CPU):
+        stem_nhwc, stem_nchw   the stem per layout (ops/stem.py): one an inference
+                               forward of a conv stack on the card
+        int8_conv              int8 convs (ops/int8_conv.py): 3 an int8 base_model
+                               batch, 71 a ConvNeXt-Small one
+        nms                    NMS resolves on the card (ops/nms.py): one a count
+        layer_norm             inference LayerNorms on the card (ops/layer_norm.py):
+                               40 a ConvNeXt-Small forward and 53 a Swin-S one
+    <name>_kernel_builds    nvcc runs of csrc/<name>.cu or of a variant of it
+                            (kernels.nvcc)
     nms_calls            NMS resolves (ops/nms.py), on either path
-    nms_kernel_launches  those that launched csrc/nms.cu (CUDA tensors)
     nms_rounds           keep updates of the fixed-point loop (the plain version)
     nms_host_syncs       device-to-host syncs of that loop (one a convergence test)
-    ln_kernel_launches   launches of csrc/layer_norm.cu (ops/layer_norm.py): one a
-                         LayerNorm of an inference forward on the card, 40 a
-                         ConvNeXt-Small forward and 53 a Swin-S one; 0 on the CPU
     swin_windows         windows x heads attended by Swin blocks (models/yogo.py
                          SwinBlock), summed over a forward's blocks and images
     swin_pad_tokens      tokens a Swin block pads its map with to whole windows,
