@@ -20,12 +20,15 @@ Phases (any failure exits non-zero):
      K = 256 and 1,024 and at 1,024 with every slot valid; its time (CUDA
      events) and that of the chain and loop it replaces;
      3c. the LayerNorm kernel (layer_norm_phase) on the ConvNeXt-Small and
-     Swin-S trunks at B=64, 772x1032, seeded weights: 40 and 53 launches a
-     bf16 forward, the forward timed with the kernel and with the plain
-     chain in its place; each (C, rows, dtype in, dtype out) of those
-     launches against the plain version, and its time beside its byte
-     bound, the plain chain's and F.layer_norm's (`python3 chip_smoke.py
-     layer_norm` runs phases 1, 2 and 3c alone);
+     Swin-S trunks at B=64, 772x1032, seeded weights: 40 and 29 row-store
+     launches a bf16 forward, and Swin's 24 windowed stores and 24 window
+     merges (csrc/window_merge.cu), the forward timed with the kernels and
+     with the plain chain and layout in their place; each (C, rows, dtype
+     in, dtype out) of those launches against the plain version, and its
+     time beside its byte bound, the plain chain's and F.layer_norm's; each
+     windowed store and merge bit for bit against the plain layout, its
+     time beside its byte bound and the plain layout's (`python3
+     chip_smoke.py layer_norm` runs phases 1, 2 and 3c alone);
   4. main path: `infer --count` through the port's Predictor on the
      golden scene (4 images of tests/test_golden_fullres.py's generator):
      bf16 in both block layouts (the stem launch counters must move, and
@@ -1481,67 +1484,88 @@ def nms_phase(pred, raw):
     return out
 
 
-# the LayerNorm launches of a bf16 forward of each trunk (ConvNeXt: stem, 36
-# blocks, 3 downsamples; Swin: stem, 2 in each of 24 blocks, 3 merges, final)
-LN_LAUNCHES = {"convnext_small": 40, "swin_small": 53}
+# the kernel launches of a bf16 forward of each trunk: LayerNorms (ConvNeXt:
+# stem, 36 blocks, 3 downsamples; Swin: stem, mlp_norm of 24 blocks, 3
+# merges, final), Swin's attention LayerNorms that store into its windows
+# and its window merges (one each a block)
+LN_LAUNCHES = {"convnext_small": {"layer_norm": 40, "layer_norm_windows": 0, "window_merge": 0},
+               "swin_small": {"layer_norm": 29, "layer_norm_windows": 24, "window_merge": 24}}
 
 
 def layer_norm_phase(dev, big, kind):
-    """Phase 3c: the LayerNorm kernel (csrc/layer_norm.cu) on the trunks'
-    main path. A bf16 forward of each trunk at B=len(big), 772x1032, seeded
-    weights, records its LayerNorm calls (the launch counter must read
-    LN_LAUNCHES) and is timed with the kernel and with the plain chain in
-    its place (CUDA events, and device time by kernel), its head compared
-    with the plain one's. Each distinct (C, rows, input dtype, output
-    dtype) of those calls is then checked against the plain version on
+    """Phase 3c: the LayerNorm kernel (csrc/layer_norm.cu) and Swin's window
+    merge (csrc/window_merge.cu) on the trunks' main path. A bf16 forward
+    of each trunk at B=len(big), 772x1032, seeded weights, records its
+    LayerNorm and merge calls (the launch counters must read LN_LAUNCHES)
+    and is timed with the kernels and with the plain chain and the plain
+    window layout (pad, roll, partition; reverse, roll, crop, add) in their
+    place (CUDA events, and device time by kernel), its head compared with
+    the plain one's. Each distinct (C, rows, input dtype, output dtype) of
+    the row-store calls is then checked against the plain version on
     seeded rows (f32 within 1e-5; bf16 within one ulp, in at most 1% of
     the elements) and timed: the kernel (median of 30 x 20 launches), its
-    byte bound (each element read once, written once, at the card's
-    memory rate), the plain chain with the consumer's cast, and
-    F.layer_norm in the input's dtype as a yardstick (the port never calls
-    it)."""
+    byte bound (each element read once, written once, at the card's memory
+    rate), the plain chain with the consumer's cast, and F.layer_norm in
+    the input's dtype as a yardstick (the port never calls it). Each
+    windowed store and each merge shape is checked bit for bit against the
+    row store followed by the plain layout (the merge: against the plain
+    reverse, roll, crop and add) and timed beside its byte bound and that
+    plain layout."""
     import torch.nn.functional as F
 
     from yogo_tpu_torch.models import yogo as Y
     from yogo_tpu_torch.ops.layer_norm import layer_norm_cuda, plan
+    from yogo_tpu_torch.ops.window_merge import window_merge_cuda
 
-    def plain_ln(x, w, b, eps, dtype):
-        return Y.layer_norm(x, w, b, eps).to(dtype)
+    def plain_ln(x, w, b, eps, dtype, windows=None):
+        y = Y.layer_norm(x, w, b, eps).to(dtype)
+        return y if windows is None else Y.swin_window_layout(y, windows)
+
+    def row_store_then_layout(x, w, b, eps, dtype, windows):
+        return Y.swin_window_layout(layer_norm_cuda(x, w, b, eps, dtype), windows)
 
     x64 = torch.from_numpy(big).to(dev)
-    out, shapes = {"trunks": {}, "shapes": []}, {}
+    out, shapes, windowed, merges = {"trunks": {}, "shapes": [], "windows": [], "merges": []}, {}, {}, {}
     for version, want in LN_LAUNCHES.items():
         model = Y.YOGO.create(HW, 0.04, 0.05, 2, model_version=version, compute_dtype=torch.bfloat16)
         net = model.init(torch.Generator().manual_seed(0), device=dev)
-        seen = []
+        seen, seen_windows, seen_merges = [], [], []
 
-        def spy(x, w, b, eps, dtype, seen=seen):
-            seen.append((x.shape[-1], x.numel() // x.shape[-1], str(x.dtype), str(dtype), eps))
-            return layer_norm_cuda(x, w, b, eps, dtype)
+        def spy(x, w, b, eps, dtype, windows=None, seen=seen, seen_windows=seen_windows):
+            if windows is None:
+                seen.append((x.shape[-1], x.numel() // x.shape[-1], str(x.dtype), str(dtype), eps))
+            else:
+                seen_windows.append((tuple(x.shape), str(dtype), eps, tuple(windows)))
+            return layer_norm_cuda(x, w, b, eps, dtype, windows)
+
+        def merge_spy(x, t, windows, seen_merges=seen_merges):
+            seen_merges.append((tuple(x.shape), str(t.dtype), tuple(windows)))
+            return window_merge_cuda(x, t, windows)
 
         def forward(model=model, net=net):
             return model.apply(net, x64, decode=False)
 
         mark = kernel_counts()
-        Y.layer_norm_cuda = spy
+        Y.layer_norm_cuda, Y.window_merge_cuda = spy, merge_spy
         try:
             head = forward()
         finally:
-            Y.layer_norm_cuda = layer_norm_cuda
+            Y.layer_norm_cuda, Y.window_merge_cuda = layer_norm_cuda, window_merge_cuda
         torch.cuda.synchronize()
-        launched = sum(kernel_counts(mark, "layer_norm").values())
-        if launched != want or len(seen) != want:
-            raise AssertionError(f"{version}: {launched} LayerNorm kernel launches a forward, not {want}")
+        since = kernel_counts(mark)
+        launched = {name: since.get(name, 0) for name in want}
+        if launched != want or (len(seen), len(seen_windows), len(seen_merges)) != tuple(want.values()):
+            raise AssertionError(f"{version}: kernel launches a forward {launched}, not {want}")
         ms = cuda_ms(forward, reps=3, per_rep=2, warmup=1)
         prof = forward_profile({"kernel": forward}, reps=1, top=15)["kernel"]
-        Y.layer_norm_cuda = plain_ln
+        Y.layer_norm_cuda, Y.window_merge_cuda = plain_ln, Y.swin_merge_windows
         try:
             plain_head = forward()
             plain_ms = cuda_ms(forward, reps=3, per_rep=2, warmup=1)
             plain_prof = forward_profile({"plain": forward}, reps=1, top=15)["plain"]
             f32_head = model.with_compute_dtype(torch.float32).apply(net, x64, decode=False)
         finally:
-            Y.layer_norm_cuda = layer_norm_cuda
+            Y.layer_norm_cuda, Y.window_merge_cuda = layer_norm_cuda, window_merge_cuda
 
         def rel(a, b):
             return float((a.double() - b.double()).norm() / b.double().norm())
@@ -1559,9 +1583,10 @@ def layer_norm_phase(dev, big, kind):
                                   "profile": prof, "plain_profile": plain_prof}
         log(f"layer_norm {version}: " + json.dumps({k: v for k, v in out["trunks"][version].items()
                                                        if "profile" not in k}))
-        for key in seen:
-            shapes.setdefault(key, {}).setdefault(version, 0)
-            shapes[key][version] += 1
+        for found, into in ((seen, shapes), (seen_windows, windowed), (seen_merges, merges)):
+            for key in found:
+                into.setdefault(key, {}).setdefault(version, 0)
+                into[key][version] += 1
         del net, head, plain_head, f32_head
         torch.cuda.empty_cache()
 
@@ -1598,12 +1623,58 @@ def layer_norm_phase(dev, big, kind):
         log("layer_norm shape: " + json.dumps(row))
         del x, got, want, gf, wf
         torch.cuda.empty_cache()
+    for (shape, od, eps, windows), by_trunk in sorted(windowed.items()):
+        odt, (bsz, h, w_, c), (hp, wp, _, _) = dtypes[od], shape, windows
+        x = torch.randn(shape, device=dev, generator=g) * 1.5 + 0.5
+        w = torch.rand(c, device=dev, generator=g) + 0.5
+        b = torch.randn(c, device=dev, generator=g) * 0.5
+        got = layer_norm_cuda(x, w, b, eps, odt, windows)
+        if not torch.equal(got, row_store_then_layout(x, w, b, eps, odt, windows)):
+            raise AssertionError(f"layer_norm windows {shape} {windows}: not the row store then the layout")
+        n_bytes = bsz * h * w_ * c * 4 + bsz * hp * wp * c * odt.itemsize + 8 * c
+        row = {
+            "map": list(shape), "windows": list(windows), "out": od, "plan": list(plan(c, odt)),
+            "launches_a_forward": by_trunk, "bytes": n_bytes, "bound_ms": n_bytes / mem_rate * 1e3,
+            "ms": cuda_ms(lambda: layer_norm_cuda(x, w, b, eps, odt, windows), 30),
+            "row_store_ms": cuda_ms(lambda: layer_norm_cuda(x, w, b, eps, odt), 30),
+            "plain_layout_ms": cuda_ms(lambda: row_store_then_layout(x, w, b, eps, odt, windows), 10),
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out["windows"].append(row)
+        log("layer_norm windows: " + json.dumps(row))
+        del x, got
+        torch.cuda.empty_cache()
+    for (shape, td, windows), by_trunk in sorted(merges.items()):
+        tdt, (bsz, h, w_, c), (hp, wp, win, _) = dtypes[td], shape, windows
+        x = torch.randn(shape, device=dev, generator=g)
+        t = torch.randn(bsz, win * win, hp * wp // win ** 2, c, device=dev, generator=g).to(tdt)
+        got = window_merge_cuda(x, t, windows)
+        if not torch.equal(got, Y.swin_merge_windows(x, t, windows)):
+            raise AssertionError(f"window_merge {shape} {windows}: not reverse, roll, crop and add")
+        n_bytes = bsz * h * w_ * c * (8 + tdt.itemsize)
+        row = {
+            "map": list(shape), "windows": list(windows), "t": td, "plan": list(plan(c, torch.float32)),
+            "launches_a_forward": by_trunk, "bytes": n_bytes, "bound_ms": n_bytes / mem_rate * 1e3,
+            "ms": cuda_ms(lambda: window_merge_cuda(x, t, windows), 30),
+            "plain_layout_ms": cuda_ms(lambda: Y.swin_merge_windows(x, t, windows), 10),
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out["merges"].append(row)
+        log("window_merge: " + json.dumps(row))
+        del x, t, got
+        torch.cuda.empty_cache()
     for version in LN_LAUNCHES:
         t = out["trunks"][version]
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            t[f"ln_{key}_a_forward"] = sum(r[key] * r["launches_a_forward"].get(version, 0) for r in out["shapes"])
-        t["ln_bound_share"] = t["ln_bound_ms_a_forward"] / t["ln_ms_a_forward"]
-        log(f"layer_norm {version} a forward: " + json.dumps({k: v for k, v in t.items() if k.startswith("ln_")}))
+        for part, prefix, keys in (("shapes", "ln", ("ms", "plain_ms", "library_ms", "bound_ms")),
+                                   ("windows", "ln_windows", ("ms", "plain_layout_ms", "bound_ms")),
+                                   ("merges", "merge", ("ms", "plain_layout_ms", "bound_ms"))):
+            for key in keys:
+                t[f"{prefix}_{key}_a_forward"] = sum(r[key] * r["launches_a_forward"].get(version, 0)
+                                                     for r in out[part])
+            t[f"{prefix}_bound_share"] = (t[f"{prefix}_bound_ms_a_forward"] / t[f"{prefix}_ms_a_forward"]
+                                          if t[f"{prefix}_ms_a_forward"] else None)
+        log(f"layer_norm {version} a forward: " + json.dumps({k: v for k, v in t.items()
+                                                              if k.startswith(("ln_", "merge_"))}))
     return out
 
 
@@ -3828,6 +3899,26 @@ def main() -> int:
         "bound_share": {v: t["ln_bound_share"] for v, t in ln["trunks"].items()},
         "library_ms": {v: t["ln_library_ms_a_forward"] for v, t in ln["trunks"].items()},
         "by_shape": ln["shapes"],
+        # Swin's attention LayerNorms, stored into its windows (the same source)
+        "windows_ms": ln["trunks"]["swin_small"]["ln_windows_ms_a_forward"],
+        "windows_plain_layout_ms": ln["trunks"]["swin_small"]["ln_windows_plain_layout_ms_a_forward"],
+        "windows_bound_share": ln["trunks"]["swin_small"]["ln_windows_bound_share"],
+        "by_windowed_shape": ln["windows"],
+    })
+    swin = ln["trunks"]["swin_small"]
+    rows.append({
+        "name": "window_merge",
+        "route": "cuda",
+        "source": "yogo_tpu_torch/csrc/window_merge.cu",
+        # none: the JAX package has no Swin trunk
+        "replaces": None,
+        "launches": swin["launches"]["window_merge"],
+        "ms": swin["merge_ms_a_forward"],
+        "plain_ms": swin["merge_plain_layout_ms_a_forward"],
+        "bound_ms": swin["merge_bound_ms_a_forward"],
+        "bound_by": "bytes",
+        "bound_share": swin["merge_bound_share"],
+        "by_shape": ln["merges"],
     })
     report["kernels"] = rows
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -3838,8 +3929,10 @@ def main() -> int:
 
 
 def layer_norm_main() -> int:
-    """`python3 chip_smoke.py layer_norm`: phases 1, 2 (the LayerNorm source
-    alone) and 3c; the report goes to chiprun_out/chip_smoke_layer_norm.json."""
+    """`python3 chip_smoke.py layer_norm`: phases 1, 2 (the LayerNorm and
+    window merge sources alone, one after the other, each build timed) and
+    3c; the report is written as chip_smoke_layer_norm.json beside the
+    smoke's own report."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3853,11 +3946,13 @@ def layer_norm_main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
-    t0 = time.time()
-    kernels.build_all(["layer_norm"])
-    report = {"device": kind, "nvidia_smi": smi, "build_s": time.time() - t0,
-              "ptxas": kernels.ptxas_summary(kernels.build_log("layer_norm"))}
-    log(f"--- nvcc csrc/layer_norm.cu ({report['build_s']:.1f} s) ---\n{kernels.build_log('layer_norm').strip()}")
+    report = {"device": kind, "nvidia_smi": smi, "build_s": {}, "ptxas": {}}
+    for name in ("layer_norm", "window_merge"):
+        t0 = time.time()
+        kernels.build_all([name])
+        report["build_s"][name] = time.time() - t0
+        report["ptxas"][name] = kernels.ptxas_summary(kernels.build_log(name))
+        log(f"--- nvcc csrc/{name}.cu ({report['build_s'][name]:.1f} s) ---\n{kernels.build_log(name).strip()}")
     imgs4, _ = gen_golden_images(4)
     big = np.concatenate([imgs4] * (TIMING_BATCH // 4))
     report["layer_norm"] = layer_norm_phase(torch.device("cuda"), big, kind)

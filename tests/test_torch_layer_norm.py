@@ -7,7 +7,9 @@ The CPU tests check what runs here: the wrapper's refusals (on `meta`
 tensors, which no kernel takes, and on a CPU tensor), the plan of lanes a
 row, and the module's plain path (equal to
 `layer_norm(...).to(dtype)` bit for bit, no launch, gradients). The `cuda`
-tests need a GPU:
+tests (among them the windowed store Swin's attention LayerNorm takes,
+bit-equal to the row store followed by the pad, roll and partition) need
+a GPU:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_layer_norm.py -m cuda
 This file imports no JAX.
 
@@ -43,6 +45,10 @@ def launches() -> int:
     return tracing.COUNTS["layer_norm_kernel_launches"]
 
 
+def window_launches() -> int:
+    return tracing.COUNTS["layer_norm_windows_kernel_launches"]
+
+
 # ------------------------------------------------------------------ the CPU
 
 
@@ -72,7 +78,8 @@ def test_plan_covers_every_width_and_idles_no_lane_at_the_trunks(out):
 def test_layer_norm_variants_edit_the_current_source():
     """Every text edit of the variant-timing script still finds its anchor
     exactly once in csrc/layer_norm.cu, the kernel variant is the source,
-    and its shapes add up to the trunks' 40 and 53 launches."""
+    and its shapes add up to the trunks' 40 and 29 row-store launches (Swin's
+    other 24 store into windows)."""
     from yogo_tpu_torch.tools import layer_norm_variants as v
     from yogo_tpu_torch.tools.timing import variant_source
 
@@ -80,7 +87,7 @@ def test_layer_norm_variants_edit_the_current_source():
     assert variant_source(src, v.VARIANTS["kernel"][0]) == src
     for name, (edits, _) in v.VARIANTS.items():
         assert variant_source(src, edits) != src or name == "kernel"
-    for trunk, want in (("convnext_small", 40), ("swin_small", 53)):
+    for trunk, want in (("convnext_small", 40), ("swin_small", 29)):
         assert sum(s[4].get(trunk, 0) for s in v.SHAPES) == want
 
 
@@ -90,7 +97,7 @@ def _meta(shape, dtype=torch.bfloat16):
 
 def _args(c=96, **over):
     a = {"x": _meta((4, 5, c)), "weight": _meta((c,), torch.float32), "bias": _meta((c,), torch.float32),
-         "out_dtype": torch.bfloat16}
+         "out_dtype": torch.bfloat16, "windows": None}
     a.update(over)
     return a
 
@@ -110,6 +117,18 @@ WRONG = {
     "meta": ({}, "no LayerNorm kernel for device meta"),
     "cpu": ({"x": torch.zeros(4, 5, 96, dtype=torch.bfloat16), "weight": torch.ones(96),
              "bias": torch.zeros(96)}, "no LayerNorm kernel for device cpu"),
+    "windows_x_bf16": ({"x": _meta((2, 9, 10, 96)), "windows": L.Windows(14, 14, 7, 3)},
+                       "windowed store takes an f32"),
+    "windows_x_3d": ({"x": _meta((9, 10, 96), torch.float32), "windows": L.Windows(14, 14, 7, 3)},
+                     "windowed store takes an f32"),
+    "windows_not_whole": ({"x": _meta((2, 9, 10, 96), torch.float32), "windows": L.Windows(14, 15, 7, 3)},
+                          "do not lay out a 9x10 map"),
+    "windows_short": ({"x": _meta((2, 9, 10, 96), torch.float32), "windows": L.Windows(7, 14, 7, 3)},
+                      "do not lay out a 9x10 map"),
+    "windows_shift_a_window": ({"x": _meta((2, 9, 10, 96), torch.float32), "windows": L.Windows(14, 14, 7, 7)},
+                               "do not lay out a 9x10 map"),
+    "windows_meta": ({"x": _meta((2, 9, 10, 96), torch.float32), "windows": L.Windows(14, 14, 7, 3)},
+                     "no LayerNorm kernel for device meta"),
 }
 
 
@@ -117,10 +136,10 @@ WRONG = {
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     over, match = WRONG[case]
     a = {**_args(), **over}
-    before = launches()
+    before = launches(), window_launches()
     with pytest.raises(ValueError, match=match):
-        L.layer_norm_cuda(a["x"], a["weight"], a["bias"], 1e-6, a["out_dtype"])
-    assert launches() == before
+        L.layer_norm_cuda(a["x"], a["weight"], a["bias"], 1e-6, a["out_dtype"], a["windows"])
+    assert (launches(), window_launches()) == before
 
 
 def _norm(c, eps, seed=0) -> Y.LayerNorm:
@@ -285,13 +304,53 @@ def test_launch_refuses_a_plan_that_does_not_cover_the_row(cuda):
     for tpr, ch, ok in ((8, 3, True), (4, 6, True), (4, 3, False), (3, 8, False), (64, 1, False),
                         (1, 17, False)):
         before = launches()
-        args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 16, 96, 0, 0, tpr, ch, 1e-6)
+        args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 16, 96, 0, 0, tpr, ch, 1e-6, *(0,) * 6)
         if ok:
             kernels.launch("layer_norm", x.device, *args)
         else:
             with pytest.raises(RuntimeError, match="invalid argument"):
                 kernels.launch("layer_norm", x.device, *args)
         assert launches() - before == int(ok), (tpr, ch)
+    # a window geometry (H, W, Hp, Wp, window, shift) over 16 slots of a 4x4
+    # map: refused for a bf16 input, a geometry windows_valid refuses, or
+    # rows that are not whole padded maps
+    for in_bf16, rows, geo, ok in ((0, 16, (3, 2, 4, 4, 2, 1), True), (1, 16, (3, 2, 4, 4, 2, 1), False),
+                                   (0, 16, (3, 2, 4, 4, 2, 2), False), (0, 16, (3, 5, 4, 4, 2, 1), False),
+                                   (0, 16, (3, 2, 4, 3, 2, 1), False), (0, 12, (3, 2, 4, 4, 2, 1), False)):
+        before = launches()
+        args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), rows, 96, in_bf16, 0, 8, 3, 1e-6, *geo)
+        if ok:
+            kernels.launch("layer_norm", x.device, *args)
+        else:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                kernels.launch("layer_norm", x.device, *args)
+        assert launches() - before == int(ok), (in_bf16, rows, geo)
+
+
+# Swin-S's four stage maps at 772x1032: (H, W, C), padded to whole 7x7 windows
+SWIN_STAGES = ((193, 258, 96), (97, 129, 192), (49, 65, 384), (25, 33, 768))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", DTYPES)
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("h,w,c", SWIN_STAGES)
+def test_windowed_store_is_the_row_store_then_pad_roll_partition(cuda, h, w, c, shift, out):
+    """The windowed store at each Swin stage's map (B=2): bit for bit the
+    row store followed by the plain layout (F.pad, torch.roll,
+    window_partition), one launch on its own counter."""
+    m = _norm(c, Y.SWIN_LN_EPS, seed=c).cuda()
+    x = _rows((2, h, w, c), torch.float32, seed=h).cuda()
+    windows = L.Windows(-(-h // 7) * 7, -(-w // 7) * 7, 7, shift)
+    wt, bs = m.weight.detach(), m.bias.detach()
+    before = launches(), window_launches()
+    got = L.layer_norm_cuda(x, wt, bs, m.eps, out, windows)
+    assert (launches() - before[0], window_launches() - before[1]) == (0, 1)
+    want = Y.swin_window_layout(L.layer_norm_cuda(x, wt, bs, m.eps, out), windows)
+    assert got.dtype == out and got.shape == want.shape == (2, 49, windows.hp * windows.wp // 49, c)
+    assert torch.equal(got, want)
+    with torch.no_grad():
+        assert torch.equal(m(x, out, windows), want)
 
 
 @pytest.mark.cuda
@@ -323,14 +382,30 @@ def _seeded_norms(net: torch.nn.Module, seed: int) -> None:
                 mod.gamma.fill_(0.1)
 
 
+COUNTERS = ("layer_norm", "layer_norm_windows", "window_merge")
+
+
+def counts() -> tuple:
+    return tuple(tracing.COUNTS[f"{name}_kernel_launches"] for name in COUNTERS)
+
+
+def plain_windows(x, w, b, eps, dtype, windows=None):
+    """layer_norm_cuda's plain chain, windows and all."""
+    y = Y.layer_norm(x, w, b, eps).to(dtype)
+    return y if windows is None else Y.swin_window_layout(y, windows)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("version,hw,want", [("convnext_small", (128, 160), 40), ("swin_small", (100, 132), 53)])
+@pytest.mark.parametrize("version,hw,want", [("convnext_small", (128, 160), (40, 0, 0)),
+                                             ("swin_small", (100, 132), (29, 24, 24))])
 def test_a_trunk_forward_launches_one_kernel_a_layer_norm(cuda, monkeypatch, version, hw, want):
     """A bf16 forward of each trunk at a small frame size: 40 (ConvNeXt:
     stem, 36 blocks, 3 downsamples) and 53 (Swin: stem, 2 in each of 24
-    blocks, 3 merges, final) launches. Its head is as close to the float32
-    forward's (plain chain, TF32 off) as the bf16 forward with the plain
-    chain in the kernel's place, and the two bf16 heads differ by no more
+    blocks, 3 merges, final) LayerNorm launches, 24 of Swin's (each
+    block's first) storing into windows, and 24 window merges (one a Swin
+    block). Its head is as close to the float32 forward's (plain chain,
+    TF32 off) as the bf16 forward with the plain chain (and the plain
+    layout) in the kernels' place, and the two bf16 heads differ by no more
     than bf16's own noise: a bf16 ulp flipped in a few LayerNorm outputs
     flips roundings in every later Dense, so the two bf16 heads part by as
     much as two bf16 runs summed in different orders would (0.005 relative
@@ -339,13 +414,14 @@ def test_a_trunk_forward_launches_one_kernel_a_layer_norm(cuda, monkeypatch, ver
     net = model.init(torch.Generator().manual_seed(0), device="cuda")
     _seeded_norms(net, 1)
     x = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 1, *hw), np.uint8)).cuda()
-    before = launches()
+    before = counts()
     got = model.apply(net, x, decode=False)
-    assert launches() - before == want
-    monkeypatch.setattr(Y, "layer_norm_cuda", lambda x, w, b, eps, dtype: Y.layer_norm(x, w, b, eps).to(dtype))
+    assert tuple(n - b for n, b in zip(counts(), before)) == want
+    monkeypatch.setattr(Y, "layer_norm_cuda", plain_windows)
+    monkeypatch.setattr(Y, "window_merge_cuda", Y.swin_merge_windows)
     plain_head = model.apply(net, x, decode=False)
     f32_head = model.with_compute_dtype(torch.float32).apply(net, x, decode=False)
-    assert launches() - before == want
+    assert tuple(n - b for n, b in zip(counts(), before)) == want
 
     def rel(a, b):
         return float((a.double() - b.double()).norm() / b.double().norm())

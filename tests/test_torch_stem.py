@@ -205,10 +205,11 @@ def test_build_runs_nvcc_for_sm90a_into_a_hashed_library(tmp_path, monkeypatch):
     kernels.build_all()
     built = sorted(f(n).name for n in kernels.SOURCES for f in (kernels._lib_path, kernels._log_path))
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == built
-    assert sorted(kernels.SOURCES) == ["int8_conv", "layer_norm", "nms", "stem"]
+    assert sorted(kernels.SOURCES) == ["int8_conv", "layer_norm", "nms", "stem", "window_merge"]
     runs = args.read_text().splitlines()
-    assert len(runs) == 4 and all("arch=compute_90a,code=sm_90a" in r for r in runs)
-    assert sorted(r.rsplit("csrc/", 1)[1] for r in runs) == ["int8_conv.cu", "layer_norm.cu", "nms.cu", "stem.cu"]
+    assert len(runs) == 5 and all("arch=compute_90a,code=sm_90a" in r for r in runs)
+    assert sorted(r.rsplit("csrc/", 1)[1] for r in runs) == [
+        "int8_conv.cu", "layer_norm.cu", "nms.cu", "stem.cu", "window_merge.cu"]
     assert all("50 registers" in kernels.build_log(n) for n in kernels.SOURCES)
     args.unlink()
     kernels.build_all()  # already built: nvcc is not run again
@@ -234,14 +235,16 @@ _C_KINDS = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes
 @pytest.mark.parametrize("name", sorted(kernels.SOURCES))
 def test_sources_bind_each_kernel_s_launch_entry(tmp_path, monkeypatch, name):
     """kernels.SOURCES[name] has the argument kinds of the extern "C"
-    prototype of yogo_<name>_launch in csrc/<name>.cu, the stream last, and
+    prototype of yogo_<name>_launch in csrc/<name>.cu, the stream last, the
+    library's hash covers the .cu and the csrc/ headers it includes, and
     load binds that entry and yogo_cuda_error_string, once."""
     src = (kernels.CSRC_DIR / f"{name}.cu").read_text()
     params = [" ".join(p.split()) for p in re.search(
         rf'extern "C" int yogo_{name}_launch\(([^)]*)\)', src).group(1).split(",")]
     kinds = [ctypes.c_void_p if "*" in p else _C_KINDS[p.rsplit(" ", 1)[0]] for p in params]
     assert kernels.SOURCES[name] == kinds and params[-1] == "void* stream"
-    assert kernels._sources(name) == [kernels.CSRC_DIR / f"{name}.cu"]
+    headers = [kernels.CSRC_DIR / h for h in re.findall(r'^#include "([^"]+)"', src, re.M)]
+    assert kernels._sources(name) == sorted([kernels.CSRC_DIR / f"{name}.cu", *headers])
 
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(kernels, "_loaded", {})

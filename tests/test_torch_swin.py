@@ -5,9 +5,13 @@ backbone), on the CPU at a small size: 100x132 frames, so that the maps
 are 25x33 -> 13x17 -> 7x9 -> 4x5 and every stage pads its windows and
 every merge pads an odd side; widths 32/64/128/256, heads 1/2/4/8 (the
 published head size 32), depths 2/2/2/2. Also: the layout pieces against
-the published constructions, the spans and counters, a native checkpoint
-that counts through Predictor and `infer --count`, and the paths that
-refuse the family."""
+the published constructions, the index maps by which the card's kernels
+carry the layout (csrc/windows.cuh) against the pad, roll and partition
+they replace, the spans and counters, a native checkpoint that counts
+through Predictor and `infer --count`, and the paths that refuse the
+family. The `cuda` tests (the window merge kernel, a head on the card
+against the plain layout's) need a GPU:
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_swin.py -m cuda"""
 
 import contextlib
 import json
@@ -21,6 +25,8 @@ from yogo_tpu_torch.infer import Predictor, predict
 from yogo_tpu_torch.models import yogo as Y
 from yogo_tpu_torch.models.defns import get_model_defn
 from yogo_tpu_torch.ops.grid import grid_size
+from yogo_tpu_torch.ops.layer_norm import Windows, layer_norm_cuda
+from yogo_tpu_torch.ops.window_merge import window_merge_cuda
 from yogo_tpu_torch.utils import tracing
 from yogo_tpu_torch.utils.checkpoint import save_checkpoint
 from yogo_tpu_torch.utils.weights import flax_from_state_dict
@@ -28,7 +34,10 @@ from yogo_tpu_torch.utils.weights import flax_from_state_dict
 HW = (100, 132)
 SMALL = {"dims": [32, 64, 128, 256], "heads": [1, 2, 4, 8], "depths": [2, 2, 2, 2]}
 MAPS = [(25, 33, 28, 35), (13, 17, 14, 21), (7, 9, 7, 14), (4, 5, 7, 7)]  # (h, w, hp, wp) a stage
+# the four stage maps at 772x1032 (H, W, C)
+FULL_STAGES = [(193, 258, 96), (97, 129, 192), (49, 65, 384), (25, 33, 768)]
 B = 2
+KERNELS = ("layer_norm", "layer_norm_windows", "window_merge")
 
 
 def config(**over) -> dict:
@@ -189,6 +198,127 @@ def test_the_bias_is_made_once_and_again_when_the_table_changes(seeded):
     assert b is not a and not torch.equal(a, b)
 
 
+# ------------------------------------- the layout as the kernels index it
+
+
+def slot_sources(b, h, w, windows: Windows) -> torch.Tensor:
+    """csrc/windows.cuh window_source over every window slot of B maps:
+    (B * Hp * Wp,) the map row (b * H + i) * W + j that each slot of the
+    (B, w*w, nW) windows holds, -1 where it holds a padded zero."""
+    hp, wp, win, shift = windows
+    nwx = wp // win
+    nw = (hp // win) * nwx
+    slot = torch.arange(b * hp * wp)
+    img, r = slot // (hp * wp), slot % (hp * wp)
+    t, n = r // nw, r % nw
+    i = ((n // nwx) * win + t // win + shift) % hp
+    j = ((n % nwx) * win + t % win + shift) % wp
+    return torch.where((i < h) & (j < w), (img * h + i) * w + j, -1)
+
+
+def token_slots(b, h, w, windows: Windows) -> torch.Tensor:
+    """csrc/windows.cuh window_slot over every row of B maps: (B * H * W,)
+    the window slot that map row (b * H + i) * W + j was laid out in."""
+    hp, wp, win, shift = windows
+    nwx = wp // win
+    nw = (hp // win) * nwx
+    row = torch.arange(b * h * w)
+    img, i, j = row // (h * w), row // w % h, row % w
+    ri, rj = (i - shift) % hp, (j - shift) % wp
+    return (img * win * win + (ri % win) * win + rj % win) * nw + (ri // win) * nwx + rj // win
+
+
+LAYOUT_MAPS = sorted({(h, w) for h, w, _ in FULL_STAGES} | {(h, w) for h, w, _, _ in MAPS})
+
+
+def _windows(h, w, shift) -> Windows:
+    return Windows(-(-h // 7) * 7, -(-w // 7) * 7, 7, shift)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("h,w", LAYOUT_MAPS)
+def test_slot_sources_are_pad_roll_partition(h, w, shift):
+    """Each window slot holds the map row slot_sources names, or a zero
+    where it names none: swin_window_layout (F.pad, torch.roll by -shift,
+    window_partition) as an index map. Rows hold their index + 1, so that
+    no row reads as a padded zero."""
+    windows = _windows(h, w, shift)
+    rows = torch.arange(1, B * h * w + 1, dtype=torch.float32)
+    x = rows.view(B, h, w, 1).expand(B, h, w, 2)
+    laid = Y.swin_window_layout(x, windows)
+    assert laid.shape == (B, 49, windows.hp * windows.wp // 49, 2)
+    src = slot_sources(B, h, w, windows)
+    want = torch.where(src >= 0, rows[src.clamp(min=0)], 0.0)
+    assert torch.equal(laid.reshape(-1, 2), want[:, None].expand(-1, 2))
+    assert int((src < 0).sum()) == B * (windows.hp * windows.wp - h * w)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("h,w", LAYOUT_MAPS)
+def test_token_slots_are_reverse_roll_crop(h, w, shift):
+    """Each map token's merge-add reads the window slot token_slots names:
+    swin_merge_windows (window_reverse, torch.roll by +shift, the crop, the
+    add) as an index map, and the inverse of slot_sources on the map's
+    rows."""
+    windows = _windows(h, w, shift)
+    g = torch.Generator().manual_seed(h * w + shift)
+    x = torch.randn(B, h, w, 8, generator=g)
+    t = torch.randn(B, 49, windows.hp * windows.wp // 49, 8, generator=g).to(torch.bfloat16)
+    slots = token_slots(B, h, w, windows)
+    want = x.reshape(-1, 8) + t.reshape(-1, 8)[slots].float()
+    assert torch.equal(Y.swin_merge_windows(x, t, windows).reshape(-1, 8), want)
+    assert torch.equal(slot_sources(B, h, w, windows)[slots], torch.arange(B * h * w))
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+MERGE_WRONG = {
+    "x_bf16": ({"x": _meta((2, 9, 10, 96), torch.bfloat16)}, "x must be an f32"),
+    "x_3d": ({"x": _meta((9, 10, 96))}, "x must be an f32"),
+    "t_f16": ({"t": _meta((2, 49, 4, 96), torch.float16)}, "t must be bfloat16 or float32"),
+    "c_not_multiple_of_8": ({"x": _meta((2, 9, 10, 100)), "t": _meta((2, 49, 4, 100))}, "C must be"),
+    "windows_not_whole": ({"windows": Windows(14, 15, 7, 3)}, "do not lay out a 9x10 map"),
+    "shift_a_window": ({"windows": Windows(14, 14, 7, 7)}, "do not lay out a 9x10 map"),
+    "t_not_the_windows": ({"t": _meta((2, 49, 9, 96))}, "t must be the map's windows"),
+    "t_strided": ({"t": _meta((2, 4, 49, 96)).transpose(1, 2)}, "x and t must be contiguous"),
+    "t_on_cpu": ({"t": torch.zeros(2, 49, 4, 96)}, "one device"),
+    "meta": ({}, "no window merge kernel for device meta"),
+    "cpu": ({"x": torch.zeros(2, 9, 10, 96), "t": torch.zeros(2, 49, 4, 96)},
+            "no window merge kernel for device cpu"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_WRONG))
+def test_merge_wrapper_refuses_what_the_kernel_does_not_take(case):
+    over, match = MERGE_WRONG[case]
+    a = {"x": _meta((2, 9, 10, 96)), "t": _meta((2, 49, 4, 96), torch.bfloat16),
+         "windows": Windows(14, 14, 7, 3), **over}
+    before = tracing.COUNTS["window_merge_kernel_launches"]
+    with pytest.raises(ValueError, match=match):
+        window_merge_cuda(a["x"], a["t"], a["windows"])
+    assert tracing.COUNTS["window_merge_kernel_launches"] == before
+
+
+def kernel_launches() -> tuple:
+    return tuple(tracing.COUNTS[f"{name}_kernel_launches"] for name in KERNELS)
+
+
+def test_the_cpu_and_autograd_launch_no_kernel(seeded):
+    """On the CPU, in inference and in a training forward and backward, the
+    block runs the plain layout and its gradient reaches every parameter."""
+    cfg, w, frames, _ = seeded
+    before = kernel_launches()
+    port_head(cfg, w, frames, torch.float32)
+    net = small_net(cfg)
+    net.load_state_dict(w, strict=True)
+    model = Y.YOGO.create(HW, cfg["anchor_w"], cfg["anchor_h"], cfg["num_classes"], model_version="swin_small")
+    model.apply(net, torch.from_numpy(frames), train=True, decode=False).float().square().mean().backward()
+    assert kernel_launches() == before
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.parameters())
+
+
 # ------------------------------------------------------ spans and counters
 
 
@@ -314,3 +444,93 @@ def test_sdpa_on_the_card_is_held_to_the_fused_backends(monkeypatch):
     with Y.fused_attention(torch.device("cuda")):
         pass
     assert asked == [[attention.SDPBackend.EFFICIENT_ATTENTION, attention.SDPBackend.CUDNN_ATTENTION]]
+
+
+# ------------------------------------------------------------------ the card
+
+
+@pytest.fixture
+def cuda():
+    """Skips the test where there is no CUDA GPU (decided when the test
+    runs, not when the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("h,w,c", FULL_STAGES)
+def test_merge_kernel_is_reverse_roll_crop_then_add(cuda, h, w, c, shift, t_dtype):
+    """The window merge kernel at each Swin stage's map (B=2): bit for bit
+    x + crop(roll(window_reverse(t), +shift)), one launch."""
+    windows = _windows(h, w, shift)
+    g = torch.Generator().manual_seed(c + shift)
+    x = torch.randn(B, h, w, c, generator=g).cuda()
+    t = torch.randn(B, 49, windows.hp * windows.wp // 49, c, generator=g).to(t_dtype).cuda()
+    before = tracing.COUNTS["window_merge_kernel_launches"]
+    got = window_merge_cuda(x, t, windows)
+    assert tracing.COUNTS["window_merge_kernel_launches"] - before == 1
+    want = Y.swin_merge_windows(x, t, windows)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_merge_kernel_refuses_misaligned_rows(cuda):
+    windows = _windows(9, 10, 3)
+    flat = torch.zeros(4 + 2 * 9 * 10 * 96, device="cuda")
+    t = torch.zeros(2, 49, 4, 96, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        window_merge_cuda(flat[1:1 + 2 * 9 * 10 * 96].view(2, 9, 10, 96), t, windows)
+
+
+def _plain_layout_ln(x, w, b, eps, dtype, windows=None):
+    """layer_norm_cuda's row store, then the plain layout."""
+    y = layer_norm_cuda(x, w, b, eps, dtype)
+    return y if windows is None else Y.swin_window_layout(y, windows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_head_on_the_card_equals_the_plain_layout_bit_for_bit(cuda, monkeypatch, seeded, dtype):
+    """SwinSmall on the card with the layout in its kernels (at the small
+    size's 8 blocks: 13 row-store LayerNorms, 8 windowed, 8 merges a
+    forward) gives the head of the same forward with the row-store kernel
+    followed by the plain pad, roll and partition, and the plain reverse,
+    roll, crop and add, bit for bit: the kernels move the same values and
+    add them as torch does."""
+    cfg, w, frames, _ = seeded
+    net = small_net(cfg)
+    net.load_state_dict(w, strict=True)
+    net = net.cuda()
+    model = Y.YOGO.create(HW, cfg["anchor_w"], cfg["anchor_h"], cfg["num_classes"], model_version="swin_small",
+                          compute_dtype=dtype)
+    x = torch.from_numpy(frames).cuda()
+    before = kernel_launches()
+    got = model.apply(net, x, decode=False)
+    blocks = sum(cfg["depths"])
+    assert tuple(n - b for n, b in zip(kernel_launches(), before)) == (blocks + 5, blocks, blocks)
+    with monkeypatch.context() as m:
+        m.setattr(Y, "layer_norm_cuda", _plain_layout_ln)
+        m.setattr(Y, "window_merge_cuda", Y.swin_merge_windows)
+        plain = model.apply(net, x, decode=False)
+    assert got.dtype == dtype
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_under_autograd_on_the_card_the_layout_is_plain(cuda, seeded):
+    """A training forward on the card records gradients: no kernel runs,
+    and the gradient reaches every parameter."""
+    cfg, w, frames, _ = seeded
+    net = small_net(cfg)
+    net.load_state_dict(w, strict=True)
+    net = net.cuda()
+    model = Y.YOGO.create(HW, cfg["anchor_w"], cfg["anchor_h"], cfg["num_classes"], model_version="swin_small",
+                          compute_dtype=torch.bfloat16)
+    before = kernel_launches()
+    out = model.apply(net, torch.from_numpy(frames).cuda(), train=True, decode=False)
+    out.float().square().mean().backward()
+    assert kernel_launches() == before
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.parameters())

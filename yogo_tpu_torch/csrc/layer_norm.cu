@@ -22,6 +22,8 @@
 // written once: 2 or 4 bytes in plus 2 or 4 out (4-8 B an element; w and b,
 // 8C bytes, stay in L1 and L2). At 3.35 TB/s the trunks' B=64
 // LayerNorms move 19.1 GB (ConvNeXt-Small) and 34.3 GB (Swin-S) a forward.
+// A windowed store (design 4) reads the map's rows and writes the padded
+// map's: 4 bytes an element of the one, 2 or 4 of the other.
 // Design:
 //   1. A row is split into chunks of VEC elements: 8 for a bf16 output, so
 //      that a lane stores 16 bytes (and loads 16 of bf16, 32 of f32); 4 for
@@ -49,6 +51,17 @@
 //      trunks' shapes, tools/layer_norm_variants.py). A lane reads its w and
 //      b (8C bytes a row's lanes share) through L1: staging them in shared
 //      memory once a block measured 0-6% slower.
+//   4. Windowed store (WIN, the launch given a window geometry): the norm
+//      before Swin's window attention writes its output straight into the
+//      shifted, padded windows that attention reads (windows.cuh). Output
+//      row r is window slot r; it normalises the map row window_source(r)
+//      names, with the same arithmetic, or stores zeros where the slot lies
+//      in the padding (Swin pads after the norm: a pad token is 0, not
+//      LN(0)). So the pad, the roll and the partition need no copies of
+//      the map (2-3 passes over a bf16 map each). Only an f32 input (the
+//      residual stream) takes it, and the plain row store keeps its
+//      machine code (the geometry is the kernel's last parameter, unread
+//      there).
 //
 // Built by yogo_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -57,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "windows.cuh"
 
 namespace {
 
@@ -111,12 +126,13 @@ __device__ __forceinline__ void store_chunk(float* p, const float* v) {
 }
 
 // CAP: chunks a lane can hold; chunk g + i * tpr exists for i < ch <= CAP
-// only (tpr * ch * VEC >= C), so the j < nch test leaves the rest empty
-template <typename TIn, typename TOut, int VEC, int CAP>
+// only (tpr * ch * VEC >= C), so the j < nch test leaves the rest empty.
+// WIN: row is a window slot of geo (design 4); else row is the input's row
+template <typename TIn, typename TOut, int VEC, int CAP, bool WIN>
 __global__ void __launch_bounds__(THREADS)
 layer_norm_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ b, TOut* __restrict__ y, long long rows,
-                  int C, int tpr, float eps) {
+                  int C, int tpr, float eps, yogo::Windows geo) {
   const int lane = threadIdx.x & 31;
   const int g = lane & (tpr - 1);  // the lane's place in its row
   const int rows_per_warp = 32 / tpr;
@@ -126,12 +142,15 @@ layer_norm_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
   const int nch = C / VEC;
   const float fc = (float)C;
 
-  const TIn* xr = x + row * C;
+  long long src = row;  // the input row; -1: a padded slot
+  if constexpr (WIN) src = live ? yogo::window_source(row, geo) : -1;
+  const bool read = WIN ? src >= 0 : live;
+  const TIn* xr = x + (WIN ? (read ? src : 0) : row) * C;
   float v[CAP][VEC];
 #pragma unroll
   for (int i = 0; i < CAP; ++i) {
     const int j = g + i * tpr;
-    if (live && j < nch) {
+    if (read && j < nch) {
       load_chunk<VEC>(xr + j * VEC, v[i]);
     } else {
 #pragma unroll
@@ -154,6 +173,13 @@ layer_norm_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
     q = __fadd_rn(q, __shfl_xor_sync(0xffffffffu, q, off));
   }
   if (!live) return;
+  if constexpr (WIN) {
+    if (src < 0) {
+      float zero[VEC] = {};
+      for (int j = g; j < nch; j += tpr) store_chunk<VEC>(y + row * C + j * VEC, zero);
+      return;
+    }
+  }
   const float mean = __fdiv_rn(s, fc);
   float var = __fsub_rn(__fdiv_rn(q, fc), __fmul_rn(mean, mean));
   var = var < 0.f ? 0.f : var;  // clamp_min: a NaN stays NaN
@@ -179,25 +205,25 @@ layer_norm_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <typename TIn, typename TOut, int VEC, int CAP>
+template <typename TIn, typename TOut, int VEC, int CAP, bool WIN>
 int launch(const void* x, const void* w, const void* b, void* y, long long rows, int C,
-           int tpr, float eps, cudaStream_t stream) {
+           int tpr, float eps, const yogo::Windows& geo, cudaStream_t stream) {
   const long long rows_per_block = (long long)(THREADS / 32) * (32 / tpr);
   const long long grid = (rows + rows_per_block - 1) / rows_per_block;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  layer_norm_kernel<TIn, TOut, VEC, CAP><<<(unsigned)grid, THREADS, 0, stream>>>(
+  layer_norm_kernel<TIn, TOut, VEC, CAP, WIN><<<(unsigned)grid, THREADS, 0, stream>>>(
       static_cast<const TIn*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<TOut*>(y), rows, C, tpr, eps);
+      static_cast<TOut*>(y), rows, C, tpr, eps, geo);
   return (int)cudaGetLastError();
 }
 
 // the smallest build that holds ch chunks a lane: 16, 32 or 64 elements
-template <typename TIn, typename TOut, int VEC>
+template <typename TIn, typename TOut, int VEC, bool WIN = false>
 int launch_ch(int ch, const void* x, const void* w, const void* b, void* y, long long rows,
-              int C, int tpr, float eps, cudaStream_t s) {
-  if (ch * VEC <= 16) return launch<TIn, TOut, VEC, 16 / VEC>(x, w, b, y, rows, C, tpr, eps, s);
-  if (ch * VEC <= 32) return launch<TIn, TOut, VEC, 32 / VEC>(x, w, b, y, rows, C, tpr, eps, s);
-  return launch<TIn, TOut, VEC, MAX_ELEMS / VEC>(x, w, b, y, rows, C, tpr, eps, s);
+              int C, int tpr, float eps, const yogo::Windows& g, cudaStream_t s) {
+  if (ch * VEC <= 16) return launch<TIn, TOut, VEC, 16 / VEC, WIN>(x, w, b, y, rows, C, tpr, eps, g, s);
+  if (ch * VEC <= 32) return launch<TIn, TOut, VEC, 32 / VEC, WIN>(x, w, b, y, rows, C, tpr, eps, g, s);
+  return launch<TIn, TOut, VEC, MAX_ELEMS / VEC, WIN>(x, w, b, y, rows, C, tpr, eps, g, s);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -208,23 +234,35 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // if out_bf16, else f32), all 16-byte aligned; C a multiple of 8 in
 // [8, 1536]; tpr lanes a row (a power of two up to 32) holding ch chunks of
 // VEC elements each (VEC 8 for a bf16 output, 4 for f32; ch * VEC <= 64),
-// tpr * ch * VEC >= C. Returns a CUDA error code (0: launched, or nothing
-// to do at rows = 0).
+// tpr * ch * VEC >= C.
+// win > 0: the windowed store (design 4): x is an f32 (B, H, W, C) map and y
+// its (B, win*win, nW, C) windows of the map padded to (Hp, Wp) and rolled
+// by -shift; rows counts y's rows, B * Hp * Wp. win = 0: the other four
+// ints are unread. Returns a CUDA error code (0: launched, or nothing to do
+// at rows = 0).
 extern "C" int yogo_layer_norm_launch(const void* x, const void* w, const void* b, void* y,
                                       long long rows, int C, int in_bf16, int out_bf16,
-                                      int tpr, int ch, float eps, void* stream) {
+                                      int tpr, int ch, float eps, int H, int W, int Hp, int Wp,
+                                      int win, int shift, void* stream) {
   const int vec = out_bf16 ? 8 : 4;
   if (rows < 0 || C < 8 || C > MAX_C || C % 8 != 0 || tpr < 1 || tpr > 32 ||
       (tpr & (tpr - 1)) != 0 || ch < 1 || ch * vec > MAX_ELEMS || tpr * ch * vec < C ||
       !aligned16(x) || !aligned16(w) || !aligned16(b) || !aligned16(y))
     return (int)cudaErrorInvalidValue;
+  const yogo::Windows geo{H, W, Hp, Wp, win, shift};
+  if (win != 0 && (in_bf16 || !yogo::windows_valid(geo) || rows % ((long long)Hp * Wp) != 0))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (win != 0) {
+    if (out_bf16) return launch_ch<float, __nv_bfloat16, 8, true>(ch, x, w, b, y, rows, C, tpr, eps, geo, s);
+    return launch_ch<float, float, 4, true>(ch, x, w, b, y, rows, C, tpr, eps, geo, s);
+  }
   if (in_bf16 && out_bf16)
-    return launch_ch<__nv_bfloat16, __nv_bfloat16, 8>(ch, x, w, b, y, rows, C, tpr, eps, s);
-  if (in_bf16) return launch_ch<__nv_bfloat16, float, 4>(ch, x, w, b, y, rows, C, tpr, eps, s);
-  if (out_bf16) return launch_ch<float, __nv_bfloat16, 8>(ch, x, w, b, y, rows, C, tpr, eps, s);
-  return launch_ch<float, float, 4>(ch, x, w, b, y, rows, C, tpr, eps, s);
+    return launch_ch<__nv_bfloat16, __nv_bfloat16, 8>(ch, x, w, b, y, rows, C, tpr, eps, geo, s);
+  if (in_bf16) return launch_ch<__nv_bfloat16, float, 4>(ch, x, w, b, y, rows, C, tpr, eps, geo, s);
+  if (out_bf16) return launch_ch<float, __nv_bfloat16, 8>(ch, x, w, b, y, rows, C, tpr, eps, geo, s);
+  return launch_ch<float, float, 4>(ch, x, w, b, y, rows, C, tpr, eps, geo, s);
 }
 
 extern "C" const char* yogo_cuda_error_string(int code) {

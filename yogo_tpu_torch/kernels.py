@@ -52,7 +52,8 @@ SOURCES: Dict[str, list] = {
     "nms": [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
     "layer_norm": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_void_p],
+    + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "window_merge": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 }
 
 _lock = threading.Lock()

@@ -48,8 +48,9 @@ from torch.utils.checkpoint import checkpoint
 
 from yogo_tpu_torch.models.defns import ConvSpec, ModelDefn, get_model_defn
 from yogo_tpu_torch.ops.grid import WH_CLAMP, cell_offsets, grid_size
-from yogo_tpu_torch.ops.layer_norm import layer_norm_cuda
+from yogo_tpu_torch.ops.layer_norm import Windows, layer_norm_cuda
 from yogo_tpu_torch.ops.stem import STEM_CHANNELS, fold_stem_params, fused_stem_nchw
+from yogo_tpu_torch.ops.window_merge import window_merge_cuda
 from yogo_tpu_torch.parallel.distributed import all_reduce_sum_autograd, world_size
 from yogo_tpu_torch.utils import tracing
 
@@ -340,13 +341,20 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
 
 
+def _records(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on `tensors`."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class LayerNorm(nn.Module):
     """Parameters of one LayerNorm over the channels (flax's scale / bias
     are weight / bias). The forward is `layer_norm` with the parameters
-    taken to x's device, its float32 output cast to `dtype` when given. A
-    CUDA input for which no gradient is recorded (inference) takes the
+    taken to x's device, its float32 output cast to `dtype` when given,
+    and, given `windows`, laid out in Swin's windows (swin_window_layout).
+    A CUDA input for which no gradient is recorded (inference) takes the
     same arithmetic as one kernel, ops/layer_norm.layer_norm_cuda, which
-    writes `dtype` directly; the CPU and autograd take the plain chain."""
+    writes `dtype` (and the windows) directly; the CPU and autograd take
+    the plain chain."""
 
     def __init__(self, dim: int, eps: float = LN_EPS):
         super().__init__()
@@ -354,14 +362,14 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        recorded = torch.is_grad_enabled() and (
-            x.requires_grad or self.weight.requires_grad or self.bias.requires_grad)
-        if x.device.type == "cuda" and not recorded:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                windows: Optional[Windows] = None) -> torch.Tensor:
+        if x.device.type == "cuda" and not _records(x, self.weight, self.bias):
             w, b = (p.to(x.device, torch.float32) for p in (self.weight, self.bias))
-            return layer_norm_cuda(x.contiguous(), w, b, self.eps, dtype or torch.float32)
+            return layer_norm_cuda(x.contiguous(), w, b, self.eps, dtype or torch.float32, windows)
         y = layer_norm(x, self.weight.to(x.device), self.bias.to(x.device), self.eps)
-        return y if dtype is None else y.to(dtype)
+        y = y if dtype is None else y.to(dtype)
+        return y if windows is None else swin_window_layout(y, windows)
 
 
 def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -584,6 +592,27 @@ def window_reverse(x: torch.Tensor, window: int, hp: int, wp: int) -> torch.Tens
     return x.permute(0, 3, 1, 4, 2, 5).reshape(b, hp, wp, c)
 
 
+def swin_window_layout(t: torch.Tensor, windows: Windows) -> torch.Tensor:
+    """A (B, H, W, C) map in Swin's windows: zero-padded to (Hp, Wp),
+    rolled by -shift along both axes where shift > 0, window_partition'ed:
+    (B, w*w, nW, C)."""
+    hp, wp, win, shift = windows
+    t = F.pad(t, (0, 0, 0, wp - t.shape[2], 0, hp - t.shape[1]))
+    if shift:
+        t = torch.roll(t, (-shift, -shift), (1, 2))
+    return window_partition(t, win)
+
+
+def swin_merge_windows(x: torch.Tensor, t: torch.Tensor, windows: Windows) -> torch.Tensor:
+    """x (B, H, W, C) plus the map that t, its (B, w*w, nW, C) windows,
+    holds: window_reverse'd, rolled back by +shift, cropped to (H, W)."""
+    hp, wp, win, shift = windows
+    t = window_reverse(t, win, hp, wp)
+    if shift:
+        t = torch.roll(t, (shift, shift), (1, 2))
+    return x + t[:, :x.shape[1], :x.shape[2]]
+
+
 def swin_shift_mask(hp: int, wp: int, window: int, shift: int, device) -> torch.Tensor:
     """(nW, w*w, w*w) float32 of 0 and SWIN_MASK: the shifted windows'
     mask over a padded (Hp, Wp) map, as Swin builds it. The map rolled by
@@ -628,6 +657,13 @@ class SwinBlock(nn.Module):
     layout, the crop and the residual; then LayerNorm, MLP (Dense 4x,
     exact GELU, Dense back) and the residual. The Denses compute in the
     forward's dtype.
+
+    The layout has no pass of its own on the card: where the LayerNorms
+    take their kernel (a CUDA input, no gradient recorded), the first one
+    stores straight into the windows (ops/layer_norm.layer_norm_cuda with
+    `windows`) and one kernel (ops/window_merge.window_merge_cuda) adds
+    the projected windows back into the residual map; the CPU and autograd
+    run the same steps as torch ops (swin_window_layout, swin_merge_windows).
 
     The bias plus the mask of each padded map size is one additive tensor
     in the compute dtype, (1, nW * heads, w*w, w*w), broadcast over the
@@ -683,12 +719,9 @@ class SwinBlock(nn.Module):
         hp, wp = -(-h // win) * win, -(-w // win) * win
         n_win = (hp // win) * (wp // win)
         tracing.add(swin_windows=b * n_win * heads, swin_pad_tokens=b * (hp * wp - h * w))
-        t = self.attn_norm(x, dtype)
+        windows = Windows(hp, wp, win, shift)
         with tracing.span("swin/layout", x.device):
-            t = F.pad(t, (0, 0, 0, wp - w, 0, hp - h))
-            if shift:
-                t = torch.roll(t, (-shift, -shift), (1, 2))
-            t = window_partition(t, win)  # (B, w*w, nW, C)
+            t = self.attn_norm(x, dtype, windows)  # (B, w*w, nW, C)
         wq, bq = self.qkv.weight.to(x.device, dtype), self.qkv.bias.to(x.device, dtype)
         q, k, v = (F.linear(t, wq[i * c:(i + 1) * c], bq[i * c:(i + 1) * c])
                    .view(b, win * win, n_win * heads, c // heads).transpose(1, 2) for i in range(3))
@@ -697,11 +730,10 @@ class SwinBlock(nn.Module):
             t = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=(c // heads) ** -0.5)
         t = _linear(t.transpose(1, 2).reshape(b, win * win, n_win, c), self.proj, dtype)
         with tracing.span("swin/layout", x.device):
-            t = window_reverse(t, win, hp, wp)
-            if shift:
-                t = torch.roll(t, (shift, shift), (1, 2))
-            t = t[:, :h, :w]
-        x = x + t
+            if x.device.type == "cuda" and not _records(x, t):
+                x = window_merge_cuda(x, t, windows)
+            else:
+                x = swin_merge_windows(x, t, windows)
         y = F.gelu(_linear(self.mlp_norm(x, dtype), self.fc1, dtype), approximate="none")
         return x + _linear(y, self.fc2, dtype)
 
@@ -749,15 +781,21 @@ class SwinSmall(nn.Module):
         fused backends run (fused_attention);
       - the relative-bias tensor is a block's own (each block has its
         table) and is kept between forwards (SwinBlock.attn_bias);
+      - on the card the window layout lives in the kernels around it: the
+        attention LayerNorm's kernel stores into the shifted, padded
+        windows, and one kernel merges the projected windows back into the
+        residual add (SwinBlock); the CPU and autograd pad, roll and
+        partition as the published code does;
       - no stochastic depth or dropout (the published rates act in
         training only), no absolute position embedding (off in Swin-S).
 
     Like ConvNeXtSmall there is no BatchNorm and no dropout: `train`,
     `bn_frozen`, `generator` and `batch_rows` change nothing. remat="blocks"
     checkpoints each block, "full" the whole forward. There is no row
-    split. The spans "swin/layout" (pad, roll, partition; reverse,
-    unroll, crop) and "swin/attn" (the attention) and the counters
-    `swin_windows` and `swin_pad_tokens` are utils/tracing.py's."""
+    split. The spans "swin/layout" (the attention LayerNorm into the
+    windows; the windows merged back into the residual add) and
+    "swin/attn" (the attention) and the counters `swin_windows` and
+    `swin_pad_tokens` are utils/tracing.py's."""
 
     def __init__(self, num_outputs: int, in_channels: int = 1,
                  depths: Tuple[int, ...] = SWIN_DEPTHS,

@@ -27,7 +27,12 @@ window's counters that `counts()` returns.
                                batch, 71 a ConvNeXt-Small one
         nms                    NMS resolves on the card (ops/nms.py): one a count
         layer_norm             inference LayerNorms on the card (ops/layer_norm.py):
-                               40 a ConvNeXt-Small forward and 53 a Swin-S one
+                               40 a ConvNeXt-Small forward and 29 a Swin-S one
+        layer_norm_windows     those that store into Swin's windows (the same
+                               source, given a window geometry): 24 a Swin-S
+                               forward
+        window_merge           Swin's window merge and residual add
+                               (ops/window_merge.py): 24 a Swin-S forward
     <name>_kernel_builds    nvcc runs of csrc/<name>.cu or of a variant of it
                             (kernels.nvcc)
     nms_calls            NMS resolves (ops/nms.py), on either path
@@ -40,8 +45,11 @@ window's counters that `counts()` returns.
 
 The Swin trunk's spans, each with its device: "swin/attn" (the window
 attention: q, k, v in, the attended values out; one a block) and
-"swin/layout" (pad, roll and window partition before the qkv Dense;
-window reverse, unroll and crop after the projection; two a block).
+"swin/layout" (the passes that carry the window layout, two a block: the
+attention LayerNorm that writes the padded, shifted windows the qkv Dense
+reads, and the merge of the projection's windows into the residual add; on
+the card one kernel each, on the CPU and under autograd the LayerNorm and
+pad, roll, partition, then reverse, unroll, crop and add).
 """
 
 from __future__ import annotations
