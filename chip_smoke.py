@@ -19,16 +19,21 @@ Phases (any failure exits non-zero):
      and on the CPU, bit for bit, at B=64 on the golden scene's heads at
      K = 256 and 1,024 and at 1,024 with every slot valid; its time (CUDA
      events) and that of the chain and loop it replaces;
-     3c. the LayerNorm kernel (layer_norm_phase) on the ConvNeXt-Small and
-     Swin-S trunks at B=64, 772x1032, seeded weights: 40 and 29 row-store
-     launches a bf16 forward, and Swin's 24 windowed stores and 24 window
-     merges (csrc/window_merge.cu), the forward timed with the kernels and
+     3c. the LayerNorm kernel (layer_norm_phase) on the ConvNeXt-Small,
+     Swin-S and ViTDet-B trunks at B=64, 772x1032, seeded weights: 40, 29
+     and 18 row-store launches a bf16 forward, Swin's 24 and ViTDet-B's 8
+     windowed stores and as many window merges (csrc/window_merge.cu;
+     LN_LAUNCHES), the forward timed with the kernels and
      with the plain chain and layout in their place; each (C, rows, dtype
      in, dtype out) of those launches against the plain version, and its
      time beside its byte bound, the plain chain's and F.layer_norm's; each
      windowed store and merge bit for bit against the plain layout, its
      time beside its byte bound and the plain layout's (`python3
      chip_smoke.py layer_norm` runs phases 1, 2 and 3c alone);
+     (`python3 chip_smoke.py vitdet` runs the ViTDet-B trunk's card tests,
+     phase 3c on that trunk alone, one full-size forward against the
+     benchmark's reference, its peak memory, the share of candidates NMS
+     suppresses in the count cells, and its cell once: vitdet_main);
   4. main path: `infer --count` through the port's Predictor on the
      golden scene (4 images of tests/test_golden_fullres.py's generator):
      bf16 in both block layouts (the stem launch counters must move, and
@@ -1486,17 +1491,20 @@ def nms_phase(pred, raw):
 
 # the kernel launches of a bf16 forward of each trunk: LayerNorms (ConvNeXt:
 # stem, 36 blocks, 3 downsamples; Swin: stem, mlp_norm of 24 blocks, 3
-# merges, final), Swin's attention LayerNorms that store into its windows
-# and its window merges (one each a block)
+# merges, final; ViTDet-B: mlp_norm of 12 blocks, attn_norm of the 4 global
+# blocks, the neck's 2), the attention LayerNorms that store into windows
+# and the window merges (one each a Swin block, a ViTDet-B window block)
 LN_LAUNCHES = {"convnext_small": {"layer_norm": 40, "layer_norm_windows": 0, "window_merge": 0},
-               "swin_small": {"layer_norm": 29, "layer_norm_windows": 24, "window_merge": 24}}
+               "swin_small": {"layer_norm": 29, "layer_norm_windows": 24, "window_merge": 24},
+               "vitdet_base": {"layer_norm": 18, "layer_norm_windows": 8, "window_merge": 8}}
 
 
-def layer_norm_phase(dev, big, kind):
-    """Phase 3c: the LayerNorm kernel (csrc/layer_norm.cu) and Swin's window
+def layer_norm_phase(dev, big, kind, versions=tuple(LN_LAUNCHES)):
+    """Phase 3c: the LayerNorm kernel (csrc/layer_norm.cu) and the window
     merge (csrc/window_merge.cu) on the trunks' main path. A bf16 forward
-    of each trunk at B=len(big), 772x1032, seeded weights, records its
-    LayerNorm and merge calls (the launch counters must read LN_LAUNCHES)
+    of each trunk of `versions` at B=len(big), 772x1032, seeded weights,
+    records its LayerNorm and merge calls (the launch counters must read
+    LN_LAUNCHES)
     and is timed with the kernels and with the plain chain and the plain
     window layout (pad, roll, partition; reverse, roll, crop, add) in their
     place (CUDA events, and device time by kernel), its head compared with
@@ -1526,7 +1534,8 @@ def layer_norm_phase(dev, big, kind):
 
     x64 = torch.from_numpy(big).to(dev)
     out, shapes, windowed, merges = {"trunks": {}, "shapes": [], "windows": [], "merges": []}, {}, {}, {}
-    for version, want in LN_LAUNCHES.items():
+    for version in versions:
+        want = LN_LAUNCHES[version]
         model = Y.YOGO.create(HW, 0.04, 0.05, 2, model_version=version, compute_dtype=torch.bfloat16)
         net = model.init(torch.Generator().manual_seed(0), device=dev)
         seen, seen_windows, seen_merges = [], [], []
@@ -1535,11 +1544,11 @@ def layer_norm_phase(dev, big, kind):
             if windows is None:
                 seen.append((x.shape[-1], x.numel() // x.shape[-1], str(x.dtype), str(dtype), eps))
             else:
-                seen_windows.append((tuple(x.shape), str(dtype), eps, tuple(windows)))
+                seen_windows.append((tuple(x.shape), str(dtype), eps, windows))
             return layer_norm_cuda(x, w, b, eps, dtype, windows)
 
         def merge_spy(x, t, windows, seen_merges=seen_merges):
-            seen_merges.append((tuple(x.shape), str(t.dtype), tuple(windows)))
+            seen_merges.append((tuple(x.shape), str(t.dtype), windows))
             return window_merge_cuda(x, t, windows)
 
         def forward(model=model, net=net):
@@ -1663,7 +1672,7 @@ def layer_norm_phase(dev, big, kind):
         log("window_merge: " + json.dumps(row))
         del x, t, got
         torch.cuda.empty_cache()
-    for version in LN_LAUNCHES:
+    for version in versions:
         t = out["trunks"][version]
         for part, prefix, keys in (("shapes", "ln", ("ms", "plain_ms", "library_ms", "bound_ms")),
                                    ("windows", "ln_windows", ("ms", "plain_layout_ms", "bound_ms")),
@@ -3963,9 +3972,132 @@ def layer_norm_main() -> int:
     return 0
 
 
+VITDET_SEED = 3000000019
+
+
+def nms_load(cells, seed, n=16):
+    """How much work NMS gets in each count cell: n frames of the cell's
+    traffic pool of `seed` through its Predictor on the benchmark's
+    weights (bf16 head), then per image the candidates (objectness above
+    the count's threshold, at most max_detections) and the detections the
+    reference's NMS keeps. -> {cell: candidates, kept, the share
+    suppressed, and the candidates' median box width and height over the
+    anchor's}."""
+    from yogo_bench import manifest, reference, scene
+    from yogo_bench.drivers.count import bench_weights, build_predictor
+
+    man, out = manifest.load(), {}
+    for name in cells:
+        cell = manifest.cell(man, name)
+        cfg, mix = manifest.config(man, cell["config"]), manifest.traffic(cell["traffic"])
+        th = mix["thresholds"]
+        w = bench_weights(cfg, torch.device("cuda"))
+        pred = build_predictor(cfg, w, torch.device("cuda"), **th)
+        frames, _ = scene.pool(seed, range(n), hw=cfg["img_size"], blobs=mix["blobs"])
+        with torch.inference_mode():
+            raw = pred.forward_raw(frames).float()
+        cand = kept = 0
+        wh = []
+        for b in range(n):
+            obj = torch.sigmoid(raw[b, ..., 4])
+            cand += min(int((obj > th["obj_thresh"]).sum()), th["max_detections"])
+            kept += len(reference.detections(raw[b], cfg, **th)[0])
+            wh.append(torch.exp(raw[b][obj > th["obj_thresh"]][:, 2:4]))
+        wh = torch.cat(wh)
+        out[name] = {"frames": n, "candidates": cand, "kept": kept, "suppressed_share": 1 - kept / max(cand, 1),
+                     "median_w_over_anchor": float(wh[:, 0].median()) if len(wh) else None,
+                     "median_h_over_anchor": float(wh[:, 1].median()) if len(wh) else None}
+        log(f"nms load {name}: " + json.dumps(out[name]))
+        del pred, w, raw
+        torch.cuda.empty_cache()
+    return out
+
+
+def vitdet_main() -> int:
+    """`python3 chip_smoke.py vitdet`: the ViTDet-B trunk (models/yogo.py
+    ViTDetBase) on the card: its card tests (tests/test_torch_vitdet.py -m
+    cuda); phase 3c on that trunk alone (its launches a forward, each
+    LayerNorm, windowed-store and merge shape against the plain version
+    and beside its byte bound); one full-size bf16 forward of 8
+    golden-scene frames through Predictor on the benchmark's seeded
+    weights against the plain float32 reference
+    (yogo_bench/families/vitdet.py) and the peak memory of a B=64 forward;
+    the share of candidates NMS suppresses in each count cell (nms_load);
+    then the cell vitdet_base.count once (`python3 -m yogo_bench.run`,
+    untraced, 10 s), which must read correct. The report is written as
+    chip_smoke_vitdet.json beside the smoke's own report."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from yogo_bench import manifest, reference
+    from yogo_bench.drivers.count import bench_weights, build_predictor, rel_rms
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(smi)
+    report = {"device": kind, "nvidia_smi": smi}
+    tests = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "--noconftest",
+                            "tests/test_torch_vitdet.py", "-m", "cuda"], cwd=REPO, capture_output=True, text=True,
+                           timeout=900)
+    report["card_tests"] = tests.stdout.strip().splitlines()[-1]
+    log(f"card tests: {report['card_tests']}")
+    if tests.returncode:
+        log(tests.stdout[-4000:])
+        return 1
+
+    dev = torch.device("cuda")
+    imgs4, _ = gen_golden_images(4)
+    big = np.concatenate([imgs4] * (TIMING_BATCH // 4))
+    report["layer_norm"] = layer_norm_phase(dev, big, kind, ("vitdet_base",))
+    torch.cuda.empty_cache()
+
+    man = manifest.load()
+    cfg = manifest.config(man, "vitdet_base")
+    w = bench_weights(cfg, dev)
+    pred = build_predictor(cfg, w, dev)
+    x = pred.to_device(big)
+    raw = pred.forward_raw(x[:8])
+    ref = reference.head(w, big[:8], cfg)
+    report["head_rel_rms_b8"] = rel_rms(raw, ref)
+    log(f"full-size head (B=8) against the reference: rel RMS {report['head_rel_rms_b8']:.6f}")
+    del ref, raw
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pred.forward_raw(x)
+    torch.cuda.synchronize()
+    report["peak_bytes_b64_forward"] = torch.cuda.max_memory_allocated()
+    report["peak_rise_bytes_b64_forward"] = torch.cuda.max_memory_allocated() - base
+    log(f"B=64 forward: peak {report['peak_bytes_b64_forward'] / 1e9:.3f} GB "
+        f"({report['peak_rise_bytes_b64_forward'] / 1e9:.3f} GB above the weights and inputs)")
+    ok = report["head_rel_rms_b8"] < manifest.limits("vitdet_base.count")["checks"]["head_rel_rms"]
+    del pred, w, x
+    torch.cuda.empty_cache()
+    report["nms_load"] = nms_load(("base_model.count", "convnext_small.count", "swin_small.count",
+                                   "vitdet_base.count"), VITDET_SEED)
+
+    cell = subprocess.run([sys.executable, "-m", "yogo_bench.run", "--workload", "vitdet_base.count", "--seed",
+                           str(VITDET_SEED), "--seconds", "10", "--trace", "0"], cwd=REPO, capture_output=True,
+                          text=True, timeout=900)
+    result = json.loads(cell.stdout.strip().splitlines()[-1]) if cell.returncode == 0 else None
+    report["cell"] = result
+    log(f"vitdet_base.count: rc {cell.returncode}; " + json.dumps(result))
+    ok = ok and bool(result) and result["correct"]
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_vitdet.json").write_text(json.dumps(report, indent=1))
+    log(json.dumps({"ok": ok, "device": {"platform": "gpu", "kind": kind}}))
+    return 0 if ok else 1
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == [PARALLEL_WORKER]:
         sys.exit(dp_worker_main(sys.argv[2:]))
     if sys.argv[1:2] == ["layer_norm"]:
         sys.exit(layer_norm_main())
+    if sys.argv[1:2] == ["vitdet"]:
+        sys.exit(vitdet_main())
     sys.exit(main())

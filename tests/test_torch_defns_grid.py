@@ -23,9 +23,9 @@ SIZES = [(96, 128), (772, 1032)]
 
 
 def test_registry_names_equal():
-    """The port has the JAX package's 12 architectures and swin_small,
-    which only the port has."""
-    assert sorted(tdefns.MODELS) == sorted(ARCHS + ["swin_small"])
+    """The port has the JAX package's 12 architectures, and swin_small and
+    vitdet_base, which only the port has."""
+    assert sorted(tdefns.MODELS) == sorted(ARCHS + ["swin_small", "vitdet_base"])
     assert len(ARCHS) == 12
 
 

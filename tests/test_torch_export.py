@@ -34,8 +34,8 @@ GOLDEN_HALF = "tests/goldens/trained_half_filters.ckpt"
 # the interpreters on one graph: torch's CPU convs against XLA's, summed in
 # other orders; decoded outputs of a head of O(1) logits
 INTERP_RTOL = INTERP_ATOL = 1e-5
-# the architectures both packages have (the swin family is the port's own)
-BOTH = sorted(n for n in MODELS if MODELS[n](2).family != "swin")
+# the architectures both packages have (the swin and vitdet families are the port's own)
+BOTH = sorted(n for n in MODELS if MODELS[n](2).family not in ("swin", "vitdet"))
 
 
 def jax_export():

@@ -1,12 +1,12 @@
 """Declarative backbone registry (copy of yogo_tpu/models/defns.py, plus
-`swin_small`, which only the port has).
+`swin_small` and `vitdet_base`, which only the port has).
 
 The reference defines 12 architectures as hand-written torch nn.Sequential
 stacks (reference: yogo/model_defns.py:30-558). Here each architecture is a
 *data* description - a tuple of ConvSpec - consumed by one nn.Module
 (models.yogo.ConvStack), and grid-size arithmetic (ops.grid.grid_size) folds
-over the same specs the model runs. The convnext and swin families run
-modules of their own; their specs carry only the grid arithmetic.
+over the same specs the model runs. The convnext, swin and vitdet families
+run modules of their own; their specs carry only the grid arithmetic.
 
 Registry semantics match the reference exactly: ``get_model_defn(None)`` and
 unknown names fall back to base_model (reference: yogo/model_defns.py:11-18).
@@ -289,5 +289,30 @@ def swin_small(num_classes: int, rgb_input: bool = False) -> ModelDefn:
             ConvSpec(768, kernel=1, stride=2, padding=0, act=None),
             ConvSpec(5 + num_classes, kernel=1, padding=0, act=None),
             ConvSpec(5 + num_classes, kernel=4, stride=4, padding=0, act=None, transpose=True),
+        ),
+    )
+
+
+@register_model
+def vitdet_base(num_classes: int, rgb_input: bool = False) -> ModelDefn:
+    """ViTDet's ViT-B backbone (arXiv:2203.16527; detectron2
+    projects/ViTDet, mask_rcnn_vitdet_b_100ep) with the stride-8 level of
+    its simple feature pyramid and YOGO's 1x1 head
+    (models.yogo.ViTDetBase). As for swin_small the spec carries only the
+    grid arithmetic: the patch embedding, the pyramid's 2x2 stride-2
+    transpose and the head.
+    """
+    return ModelDefn(
+        name="vitdet_base",
+        family="vitdet",
+        blocks=(
+            # the 16x16 stride-16 patch embedding of the frame zero-padded
+            # bottom and right to a multiple of 16: ceil(h / 16), which a
+            # kernel-1 stride-16 conv's floor((h - 1) / 16) + 1 equals
+            ConvSpec(768, kernel=1, stride=16, padding=0, act=None),
+            # the simple feature pyramid's 2x2 stride-2 transpose (its 1x1
+            # and 3x3 convs keep the map's size)
+            ConvSpec(384, kernel=2, stride=2, padding=0, act=None, transpose=True),
+            ConvSpec(5 + num_classes, kernel=1, padding=0, act=None),
         ),
     )

@@ -19,6 +19,11 @@
     the port has (Swin-S as its padded detection backbone runs it), NHWC
     with a float32 residual stream, window attention through
     scaled_dot_product_attention;
+  - `ViTDetBase` / `ViTBlock`: the vitdet family, which only the port has
+    (ViTDet's ViT-B backbone and the stride-8 level of its simple feature
+    pyramid), NHWC with a float32 residual stream, windowed and global
+    attention with decomposed relative positions (`rel_pos_attention`);
+    both transformer trunks share `TransformerTrunk`'s forward;
   - `decode_predictions`: the YOLO9000 direct-location decode.
 
 Block 0 of a canonical conv stack runs as the fused CUDA stem kernel
@@ -65,6 +70,15 @@ SWIN_HEADS = (3, 6, 12, 24)
 SWIN_WINDOW = 7
 SWIN_LN_EPS = 1e-5
 SWIN_MASK = -100.0  # the shift mask's additive logit between regions
+VIT_DIM = 768
+VIT_DEPTH = 12
+VIT_HEADS = 12
+VIT_PATCH = 16
+VIT_WINDOW = 14
+VIT_GLOBAL_BLOCKS = (2, 5, 8, 11)
+VIT_GLOBAL_SIZE = 64  # the published img_size 1024 over the patch: global tables of 2 * 64 - 1 rows
+VIT_POS_SIZE = 14  # the position embedding's grid: pretrain_img_size 224 over the patch
+VIT_NECK = 256  # the simple feature pyramid's out_channels
 
 
 def resolve_device(device=None) -> torch.device:
@@ -374,10 +388,12 @@ class LayerNorm(nn.Module):
 
 def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """flax nn.Conv(dtype=dtype) on an NHWC tensor: input, kernel and bias
-    cast to `dtype` (the module's tensors taken to x's device), the conv
-    run on the channels_last NCHW view, NHWC out in `dtype` (contiguous)."""
+    (where the conv has one) cast to `dtype` (the module's tensors taken to
+    x's device), the conv run on the channels_last NCHW view, NHWC out in
+    `dtype` (contiguous)."""
+    bias = conv.bias.to(x.device, dtype) if conv.bias is not None else None
     y = F.conv2d(
-        x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(x.device, dtype), conv.bias.to(x.device, dtype),
+        x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(x.device, dtype), bias,
         conv.stride, conv.padding, conv.dilation, conv.groups,
     )
     return y.permute(0, 2, 3, 1).contiguous()
@@ -646,6 +662,49 @@ def fused_attention(device: torch.device):
         yield
 
 
+class MadeFrom:
+    """Tensors made from a module's parameters (a bias, resampled tables),
+    one a key (device, dtype, map size), kept until a parameter changes
+    (load_state_dict, an optimizer step: its storage or its version) and
+    made outside inference mode, so that a training forward may use them
+    too. A forward that records gradients makes them anew."""
+
+    def __init__(self):
+        self.version, self.made = None, {}
+
+    def get(self, params: Sequence[torch.Tensor], key: tuple, make) -> object:
+        if _records(*params):
+            return make()
+        version = tuple((p.data_ptr(), p._version) for p in params)
+        if self.version != version:
+            self.version, self.made = version, {}
+        if key not in self.made:
+            with torch.inference_mode(False), torch.no_grad():
+                self.made[key] = make()
+        return self.made[key]
+
+
+def attention_inputs(t: torch.Tensor, qkv: nn.Linear, heads: int, dtype: torch.dtype):
+    """(q, k, v), each (B, G * heads, L, d), of tokens t (B, L, G, C) laid
+    out token-major in G groups (windows, or one whole map): three Denses
+    in `dtype`, the q, k and v rows of the one qkv kernel, whose outputs
+    are attention's layout without a copy."""
+    b, n, g, c = t.shape
+    wq, bq = qkv.weight.to(t.device, dtype), qkv.bias.to(t.device, dtype)
+    return tuple(F.linear(t, wq[i * c:(i + 1) * c], bq[i * c:(i + 1) * c])
+                 .view(b, n, g * heads, c // heads).transpose(1, 2) for i in range(3))
+
+
+def merge_windows_add(x: torch.Tensor, t: torch.Tensor, windows: Windows) -> torch.Tensor:
+    """x plus the map that its windows t hold (swin_merge_windows): one
+    kernel, window_merge_cuda, for a CUDA input for which no gradient is
+    recorded (the LayerNorm kernel's own condition); the plain layout on
+    the CPU and under autograd."""
+    if x.device.type == "cuda" and not _records(x, t):
+        return window_merge_cuda(x, t, windows)
+    return swin_merge_windows(x, t, windows)
+
+
 class SwinBlock(nn.Module):
     """One Swin Transformer block on an NHWC float32 map (residual stream),
     as the padded detection backbone runs it
@@ -681,7 +740,7 @@ class SwinBlock(nn.Module):
         self.mlp_norm = LayerNorm(dim, SWIN_LN_EPS)
         self.fc1 = nn.Linear(dim, 4 * dim)
         self.fc2 = nn.Linear(4 * dim, dim)
-        self._bias_cache = (None, {})
+        self._bias = MadeFrom()
 
     def attn_bias(self, hp: int, wp: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
         """(1, nW * heads, w*w, w*w) in `dtype`: the relative bias plus,
@@ -689,18 +748,8 @@ class SwinBlock(nn.Module):
         Its rows are padded to a multiple of 8 elements and sliced back,
         so that the fused kernels read it in place (the memory-efficient
         one would copy a tensor whose row stride is not a multiple of 8)."""
-        table = self.rel_bias
-        if torch.is_grad_enabled() and table.requires_grad:
-            return self._make_bias(hp, wp, dtype, device)
-        version = (table.data_ptr(), table._version)
-        if self._bias_cache[0] != version:
-            self._bias_cache = (version, {})
-        made = self._bias_cache[1]
-        key = (device, dtype, hp, wp)
-        if key not in made:
-            with torch.inference_mode(False), torch.no_grad():
-                made[key] = self._make_bias(hp, wp, dtype, device)
-        return made[key]
+        return self._bias.get((self.rel_bias,), (device, dtype, hp, wp),
+                              lambda: self._make_bias(hp, wp, dtype, device))
 
     def _make_bias(self, hp: int, wp: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
         w2 = self.window * self.window
@@ -722,18 +771,13 @@ class SwinBlock(nn.Module):
         windows = Windows(hp, wp, win, shift)
         with tracing.span("swin/layout", x.device):
             t = self.attn_norm(x, dtype, windows)  # (B, w*w, nW, C)
-        wq, bq = self.qkv.weight.to(x.device, dtype), self.qkv.bias.to(x.device, dtype)
-        q, k, v = (F.linear(t, wq[i * c:(i + 1) * c], bq[i * c:(i + 1) * c])
-                   .view(b, win * win, n_win * heads, c // heads).transpose(1, 2) for i in range(3))
+        q, k, v = attention_inputs(t, self.qkv, heads, dtype)
         bias = self.attn_bias(hp, wp, dtype, x.device)
         with tracing.span("swin/attn", x.device):
             t = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=(c // heads) ** -0.5)
         t = _linear(t.transpose(1, 2).reshape(b, win * win, n_win, c), self.proj, dtype)
         with tracing.span("swin/layout", x.device):
-            if x.device.type == "cuda" and not _records(x, t):
-                x = window_merge_cuda(x, t, windows)
-            else:
-                x = swin_merge_windows(x, t, windows)
+            x = merge_windows_add(x, t, windows)
         y = F.gelu(_linear(self.mlp_norm(x, dtype), self.fc1, dtype), approximate="none")
         return x + _linear(y, self.fc2, dtype)
 
@@ -757,7 +801,45 @@ class SwinMerge(nn.Module):
         return _linear(self.norm(x, dtype), self.reduction, dtype).float()
 
 
-class SwinSmall(nn.Module):
+class TransformerTrunk(nn.Module):
+    """The forward that the transformer trunks (SwinSmall, ViTDetBase)
+    share. Like ConvNeXtSmall they have no BatchNorm and no dropout:
+    `train`, `bn_frozen`, `generator` and `batch_rows` change nothing.
+    remat="blocks" checkpoints each block, "full" the whole forward. A
+    forward takes the whole input at once: no fused stem to start after
+    (`start_block`), no row split (`split`); each refusal names the
+    `family`. A subclass gives `_forward(x, remat)`."""
+
+    family = ""
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        start_block: int = 0,
+        *,
+        train: bool = False,
+        bn_frozen: bool = False,
+        generator: Optional[torch.Generator] = None,
+        remat: str = "none",
+        batch_rows: Optional[Tuple[int, int]] = None,
+        split=None,
+    ) -> torch.Tensor:
+        """(B, C, H, W) in the compute dtype -> (B, 5+C, Sy, Sx) head
+        logits in the compute dtype (a channels_last view)."""
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
+        if start_block:
+            raise ValueError(f"the {self.family} family has no fused stem to start after")
+        if split is not None:
+            raise NotImplementedError(f"no row split for the {self.family} family")
+        del train, bn_frozen, generator, batch_rows  # no BN, no dropout
+        recompute = remat != "none" and torch.is_grad_enabled()
+        if recompute and remat == "full":
+            return checkpoint(self._forward, x, "none", use_reentrant=False)
+        return self._forward(x, "blocks" if recompute else "none")
+
+
+class SwinSmall(TransformerTrunk):
     """Swin-S trunk + YOGO format head (Liu et al. 2021, arXiv:2103.14030;
     timm's swin_small_patch4_window7_224 for the widths, the padded
     detection backbone of Swin-Transformer-Object-Detection for the
@@ -789,13 +871,13 @@ class SwinSmall(nn.Module):
       - no stochastic depth or dropout (the published rates act in
         training only), no absolute position embedding (off in Swin-S).
 
-    Like ConvNeXtSmall there is no BatchNorm and no dropout: `train`,
-    `bn_frozen`, `generator` and `batch_rows` change nothing. remat="blocks"
-    checkpoints each block, "full" the whole forward. There is no row
-    split. The spans "swin/layout" (the attention LayerNorm into the
-    windows; the windows merged back into the residual add) and
-    "swin/attn" (the attention) and the counters `swin_windows` and
-    `swin_pad_tokens` are utils/tracing.py's."""
+    The forward's arguments are TransformerTrunk's. The spans
+    "swin/layout" (the attention LayerNorm into the windows; the windows
+    merged back into the residual add) and "swin/attn" (the attention) and
+    the counters `swin_windows` and `swin_pad_tokens` are
+    utils/tracing.py's."""
+
+    family = "swin"
 
     def __init__(self, num_outputs: int, in_channels: int = 1,
                  depths: Tuple[int, ...] = SWIN_DEPTHS,
@@ -815,32 +897,6 @@ class SwinSmall(nn.Module):
         self.format_conv = nn.Conv2d(dims[-1], num_outputs, 1)
         self.format_up = nn.ConvTranspose2d(num_outputs, num_outputs, 4, stride=4)
 
-    def forward(
-        self,
-        x: torch.Tensor,
-        start_block: int = 0,
-        *,
-        train: bool = False,
-        bn_frozen: bool = False,
-        generator: Optional[torch.Generator] = None,
-        remat: str = "none",
-        batch_rows: Optional[Tuple[int, int]] = None,
-        split=None,
-    ) -> torch.Tensor:
-        """(B, C, H, W) in the compute dtype -> (B, 5+C, Sy, Sx) head
-        logits in the compute dtype (a channels_last view)."""
-        if remat not in REMAT_MODES:
-            raise ValueError(f"remat must be none|blocks|full, got {remat!r}")
-        if start_block:
-            raise ValueError("the swin family has no fused stem to start after")
-        if split is not None:
-            raise NotImplementedError("no row split for the swin family")
-        del train, bn_frozen, generator, batch_rows  # no BN, no dropout
-        recompute = remat != "none" and torch.is_grad_enabled()
-        if recompute and remat == "full":
-            return checkpoint(self._forward, x, "none", use_reentrant=False)
-        return self._forward(x, "blocks" if recompute else "none")
-
     def _forward(self, x: torch.Tensor, remat: str) -> torch.Tensor:
         dtype = x.dtype
         with fused_attention(x.device):
@@ -853,6 +909,231 @@ class SwinSmall(nn.Module):
                     h = checkpoint(block, h, dtype, use_reentrant=False) if remat == "blocks" else block(h, dtype)
             out = format_head(self, self.final_norm(h, dtype), dtype)
         return out.permute(0, 3, 1, 2)
+
+
+def vit_rel_pos(table: torch.Tensor, size: int) -> torch.Tensor:
+    """(size, size, d): ViTDet's get_rel_pos (detectron2 vit.py) for
+    queries and keys along one side of `size` tokens: the (n, d) table
+    resampled linearly (align_corners False) to 2 * size - 1 rows where it
+    has another length, then row i - j + size - 1 for query i, key j."""
+    rows = 2 * size - 1
+    if table.shape[0] != rows:
+        table = F.interpolate(table.t()[None], size=rows, mode="linear")[0].t()
+    idx = torch.arange(size, device=table.device)
+    return table[idx[:, None] - idx[None, :] + size - 1]
+
+
+def vit_abs_pos(pos_embed: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(1, h, w, C): ViTDet's get_abs_pos: the (1, 1 + n*n, C) embedding
+    without its class token, its n x n grid resampled bicubically
+    (align_corners False) to h x w where it has another size."""
+    grid = pos_embed[:, 1:]
+    n = math.isqrt(grid.shape[1])
+    if n * n != grid.shape[1]:
+        raise ValueError(f"a position embedding of {grid.shape[1]} positions is no square grid")
+    grid = grid.reshape(1, n, n, -1)
+    if (n, n) == (h, w):
+        return grid
+    return F.interpolate(grid.permute(0, 3, 1, 2), size=(h, w), mode="bicubic",
+                         align_corners=False).permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=16)
+def vit_key_columns(sh: int, sw: int, d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(sh * sw, P) in `dtype` on `device`: the columns that widen the key
+    of token j of an sh x sw map (row-major) for rel_pos_attention: a one
+    in column j // sw (its row) and in column sh + j % sw (its column),
+    zeros after them, so that d + P, the widened width, is d + sh + sw up
+    to a multiple of 8 (the fused kernels' alignment). Made once a
+    geometry and device, outside inference mode."""
+    p = -(-(d + sh + sw) // 8) * 8 - d
+    with torch.inference_mode(False):
+        j = torch.arange(sh * sw)
+        out = torch.zeros(sh * sw, p, dtype=dtype)
+        out[j, j // sw] = 1
+        out[j, sh + j % sw] = 1
+        return out.to(device)
+
+
+def rel_pos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: torch.Tensor,
+                      rel_w: torch.Tensor, scale: float) -> torch.Tensor:
+    """Attention with ViTDet's decomposed relative positions
+    (add_decomposed_rel_pos) that never holds the (B, S, L, L) bias: q, k,
+    v (B, S, L, d) over the L tokens of an sh x sw map (row-major), rel_h
+    (sh, sh, d) and rel_w (sw, sw, d) the block's tables (vit_rel_pos).
+    The query is widened to [q * scale, q . rel_h, q . rel_w, 0] and the
+    key to [k, vit_key_columns]: their dot product is scale * q . k +
+    q . rel_h[qh(i), kh(j)] + q . rel_w[qw(i), kw(j)], the published
+    logit (the bias from the unscaled q) with the bias rounded to q's
+    dtype, and one scaled_dot_product_attention at scale 1 attends over
+    them, v as it is. -> (B, S, L, d)."""
+    b, s, n, d = q.shape
+    sh, sw = rel_h.shape[0], rel_w.shape[0]
+    keys = vit_key_columns(sh, sw, d, q.dtype, q.device)
+    r = q.reshape(b, s, sh, sw, d)
+    qh = torch.einsum("bshwc,hkc->bshwk", r, rel_h).reshape(b, s, n, sh)
+    qw = torch.einsum("bshwc,wkc->bshwk", r, rel_w).reshape(b, s, n, sw)
+    pad = q.new_zeros(1, 1, 1, keys.shape[1] - sh - sw).expand(b, s, n, -1)
+    q = torch.cat([q * scale, qh, qw, pad], -1)
+    k = torch.cat([k, keys.expand(b, s, n, -1)], -1)
+    return F.scaled_dot_product_attention(q, k, v, scale=1.0)
+
+
+class ViTBlock(nn.Module):
+    """One ViTDet block (detectron2 vit.py Block with use_rel_pos) on an
+    NHWC float32 map (residual stream): LayerNorm, attention with
+    decomposed relative positions over the windows of the map padded to
+    whole windows (`window` > 0) or over the whole map (`window` 0, a
+    global block), the projection, the residual; then LayerNorm, MLP
+    (Dense 4x, exact GELU, Dense back) and the residual. The Denses
+    compute in the forward's dtype, LayerNorms as `layer_norm`, eps 1e-6.
+    `rel_size` sizes the tables rel_pos_h / rel_pos_w, (2 * rel_size - 1,
+    head dim): the window, or the published global map (1024 / 16).
+
+    A window block carries its layout as SwinBlock does (shift 0): on the
+    card the attention LayerNorm's kernel stores straight into the
+    windows, padded slots 0 as the published pad after the norm, and one
+    kernel adds the projected windows back into the residual; the CPU and
+    autograd pad, partition, reverse and crop as torch ops. The tables
+    resampled and gathered for a map size (vit_rel_pos) are kept between
+    forwards (MadeFrom). Spans: "vit/layout" around the windowed store and
+    the merge-add, "vit/win_attn" or "vit/global_attn" around
+    rel_pos_attention; counters vit_windows, vit_pad_tokens,
+    vit_global_tokens (utils/tracing.py)."""
+
+    def __init__(self, dim: int, heads: int, window: int, rel_size: int):
+        super().__init__()
+        self.heads, self.window = heads, window
+        self.attn_norm = LayerNorm(dim)
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.rel_pos_h = nn.Parameter(torch.zeros(2 * rel_size - 1, dim // heads))
+        self.rel_pos_w = nn.Parameter(torch.zeros(2 * rel_size - 1, dim // heads))
+        self.proj = nn.Linear(dim, dim)
+        self.mlp_norm = LayerNorm(dim)
+        self.fc1 = nn.Linear(dim, 4 * dim)
+        self.fc2 = nn.Linear(4 * dim, dim)
+        self._tables = MadeFrom()
+
+    def rel_pos(self, sh: int, sw: int, dtype: torch.dtype, device: torch.device):
+        """(rel_h (sh, sh, d), rel_w (sw, sw, d)) in `dtype`: the tables
+        for an sh x sw map of queries and keys."""
+        return self._tables.get(
+            (self.rel_pos_h, self.rel_pos_w), (device, dtype, sh, sw),
+            lambda: (vit_rel_pos(self.rel_pos_h.to(device), sh).to(dtype),
+                     vit_rel_pos(self.rel_pos_w.to(device), sw).to(dtype)))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        b, h, w, c = x.shape
+        win, heads = self.window, self.heads
+        if win:
+            hp, wp = -(-h // win) * win, -(-w // win) * win
+            windows = Windows(hp, wp, win, 0)
+            tracing.add(vit_windows=b * hp * wp // (win * win), vit_pad_tokens=b * (hp * wp - h * w))
+            with tracing.span("vit/layout", x.device):
+                t = self.attn_norm(x, dtype, windows)  # (B, w*w, nW, C)
+            side, name = (win, win), "vit/win_attn"
+        else:
+            tracing.add(vit_global_tokens=b * h * w)
+            t = self.attn_norm(x, dtype).view(b, h * w, 1, c)
+            side, name = (h, w), "vit/global_attn"
+        n, groups = t.shape[1], t.shape[2]
+        q, k, v = attention_inputs(t, self.qkv, heads, dtype)
+        rel_h, rel_w = self.rel_pos(*side, dtype, x.device)
+        with tracing.span(name, x.device):
+            t = rel_pos_attention(q, k, v, rel_h, rel_w, (c // heads) ** -0.5)
+        t = _linear(t.transpose(1, 2).reshape(b, n, groups, c), self.proj, dtype)
+        if win:
+            with tracing.span("vit/layout", x.device):
+                x = merge_windows_add(x, t, windows)
+        else:
+            x = x + t.view(b, h, w, c)
+        y = F.gelu(_linear(self.mlp_norm(x, dtype), self.fc1, dtype), approximate="none")
+        return x + _linear(y, self.fc2, dtype)
+
+
+class ViTDetBase(TransformerTrunk):
+    """ViTDet's ViT-B backbone + its simple feature pyramid's stride-8
+    level + YOGO's 1x1 format conv (Li et al. 2022, arXiv:2203.16527;
+    detectron2 projects/ViTDet mask_rcnn_vitdet_b_100ep.py, with the
+    backbone of detectron2/modeling/backbone/vit.py): a 16x16 stride-16
+    patch embedding plus the absolute position embedding (1 + 14x14
+    positions, resampled bicubically to the map), 12 ViTBlocks of width
+    768 and 12 heads, windowed (14x14) but for the global blocks 2, 5, 8
+    and 11, every block with decomposed relative positions; no final norm;
+    then a 2x2 stride-2 transpose conv 768 -> 384, a 1x1 conv to 256
+    without bias + LayerNorm, a 3x3 conv 256 -> 256 without bias +
+    LayerNorm, and the 1x1 conv to 5+C. NHWC throughout, the residual
+    stream float32, the convs and Denses in the input's dtype (YOGO.apply
+    casts the input to the compute dtype); the forward's arguments are
+    TransformerTrunk's. At 772x1032: a 49x65 map of 3,185 tokens, 20
+    windows of the 56x70 padded map, the head on a (Sy, Sx) = (98, 130)
+    grid.
+
+    Departures from the published code:
+      - one input channel (grayscale frames), where the published takes 3;
+      - the frame is zero-padded bottom and right to a multiple of 16 (as
+        detectron2's ImageList pads to its size_divisibility), where the
+        COCO pipeline pads it square to 1024;
+      - of the simple feature pyramid only the stride-8 level, whose map
+        is YOGO's grid;
+      - no drop path (it acts in training only);
+      - the resampled position embedding and relative-position tables are
+        kept between forwards (MadeFrom), where the published resamples
+        them every forward;
+      - attention widens q and k (rel_pos_attention) where the published
+        adds a dense (B * heads, L, L) bias: the same logits, with the
+        bias rounded to the compute dtype; on CUDA only the fused
+        backends of scaled_dot_product_attention run (fused_attention);
+      - the window blocks' layout lives in the kernels around the
+        attention on the card (ViTBlock), as Swin's does."""
+
+    family = "vitdet"
+
+    def __init__(self, num_outputs: int, in_channels: int = 1, dim: int = VIT_DIM, depth: int = VIT_DEPTH,
+                 heads: int = VIT_HEADS, window: int = VIT_WINDOW,
+                 global_blocks: Tuple[int, ...] = VIT_GLOBAL_BLOCKS, global_size: int = VIT_GLOBAL_SIZE,
+                 pos_size: int = VIT_POS_SIZE, neck: int = VIT_NECK):
+        super().__init__()
+        self.depth = depth
+        self.stem_conv = nn.Conv2d(in_channels, dim, VIT_PATCH, stride=VIT_PATCH)
+        self.pos_embed = nn.Parameter(torch.zeros(1, 1 + pos_size * pos_size, dim))
+        for i in range(depth):
+            glob = i in global_blocks
+            self.add_module(f"block{i}", ViTBlock(dim, heads, 0 if glob else window,
+                                                  global_size if glob else window))
+        self.neck_up = nn.ConvTranspose2d(dim, dim // 2, 2, stride=2)
+        self.lateral_conv = nn.Conv2d(dim // 2, neck, 1, bias=False)
+        self.lateral_norm = LayerNorm(neck)
+        self.output_conv = nn.Conv2d(neck, neck, 3, padding=1, bias=False)
+        self.output_norm = LayerNorm(neck)
+        self.format_conv = nn.Conv2d(neck, num_outputs, 1)
+        self._pos = MadeFrom()
+
+    def abs_pos(self, h: int, w: int, device: torch.device) -> torch.Tensor:
+        """(1, h, w, C) float32: the position embedding of an h x w map."""
+        return self._pos.get((self.pos_embed,), (device, h, w),
+                             lambda: vit_abs_pos(self.pos_embed.to(device), h, w))
+
+    def _forward(self, x: torch.Tensor, remat: str) -> torch.Tensor:
+        dtype = x.dtype
+        x = F.pad(x, (0, -x.shape[3] % VIT_PATCH, 0, -x.shape[2] % VIT_PATCH))
+        with fused_attention(x.device):
+            h = _conv_nhwc(x.permute(0, 2, 3, 1), self.stem_conv, dtype)
+            h = h + self.abs_pos(h.shape[1], h.shape[2], x.device)  # float32 from here
+            for i in range(self.depth):
+                block = getattr(self, f"block{i}")
+                h = checkpoint(block, h, dtype, use_reentrant=False) if remat == "blocks" else block(h, dtype)
+            up = self.neck_up
+            u = F.conv_transpose2d(h.permute(0, 3, 1, 2).to(dtype), up.weight.to(h.device, dtype),
+                                   up.bias.to(h.device, dtype), up.stride)
+            u = self.lateral_norm(_conv_nhwc(u.permute(0, 2, 3, 1), self.lateral_conv, dtype), dtype)
+            u = self.output_norm(_conv_nhwc(u, self.output_conv, dtype), dtype)
+            out = _conv_nhwc(u, self.format_conv, dtype)
+        return out.permute(0, 3, 1, 2)
+
+
+# the trunk module of each family but the conv stack (YOGO.module)
+TRUNKS = {"convnext": ConvNeXtSmall, "swin": SwinSmall, "vitdet": ViTDetBase}
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
@@ -963,7 +1244,7 @@ def no_tf32(device: torch.device):
 class YOGO:
     """Static model configuration + functional forward (mirrors
     yogo_tpu.models.yogo.YOGO; the weights live in the module of the
-    architecture's family, a ConvStack, a ConvNeXtSmall or a SwinSmall)."""
+    architecture's family, a ConvStack or a trunk of TRUNKS)."""
 
     img_size: Tuple[int, int]  # (H, W)
     anchor_w: float
@@ -1000,20 +1281,17 @@ class YOGO:
         return self.grid[1]
 
     def module(self, device=None, channels_last: bool = True) -> nn.Module:
-        """The module of this architecture's family (a ConvStack, a
-        ConvNeXtSmall or a SwinSmall) in eval mode on `device` (default CUDA), with torch's
-        default init; load weights with
+        """The module of this architecture's family (a ConvStack, or the
+        family's trunk in TRUNKS) in eval mode on `device` (default CUDA),
+        with torch's default init; load weights with
         load_state_dict(state_dict_from_flax(variables)), or start from
         `init`. Whether a forward trains is an argument of `apply`, not the
         module's mode. `channels_last` picks a conv stack's memory format;
-        the convnext and swin trunks always run NHWC."""
+        the trunks always run NHWC."""
         defn = self.defn
         device = resolve_device(device)
-        if defn.family == "convnext":
-            net = ConvNeXtSmall(5 + self.num_classes, self.input_channels)
-            return net.to(device).eval()
-        if defn.family == "swin":
-            return SwinSmall(5 + self.num_classes, self.input_channels).to(device).eval()
+        if defn.family in TRUNKS:
+            return TRUNKS[defn.family](5 + self.num_classes, self.input_channels).to(device).eval()
         if defn.family != "conv_stack":
             raise NotImplementedError(f"{defn.family} models are not ported")
         stack = ConvStack(defn.blocks, self.input_channels, channels_last)
@@ -1033,11 +1311,14 @@ class YOGO:
         yogo/model.py:79-87), zero biases, BN scale 1 / bias 0, running mean
         0 / var 1. ConvNeXt: flax's defaults, lecun_normal kernels (fan-in,
         truncated normal), zero biases, LayerNorm scale 1 / bias 0, `gamma`
-        1e-6. Swin: timm's, Dense kernels and the relative-bias tables
-        normal with std 0.02 (truncated at +-2), zero biases, LayerNorm 1 /
-        0; its convs (patch embedding, head) as ConvNeXt's. The values are drawn on the CPU from `generator` (a CPU
-        generator; None uses torch's global one), so a seed gives the same
-        weights on any device."""
+        1e-6. The transformer trunks: Dense kernels normal with std 0.02
+        (truncated at +-2), zero biases, LayerNorm 1 / 0, their convs
+        (patch embedding, neck, head) as ConvNeXt's; Swin's relative-bias
+        tables as its Dense kernels (timm's), ViTDet's position embedding
+        too and its relative-position tables zero (detectron2's
+        rel_pos_zero_init). The values are drawn on the CPU from
+        `generator` (a CPU generator; None uses torch's global one), so a
+        seed gives the same weights on any device."""
         device = resolve_device(device)
         stack = self.module("cpu", channels_last)
         with torch.no_grad():
@@ -1050,7 +1331,7 @@ class YOGO:
                         _lecun_normal_(m.weight, m.weight.numel() // m.weight.shape[1], generator)
                         m.bias.zero_()
                 return stack.to(device)
-            if isinstance(stack, SwinSmall):
+            if isinstance(stack, TransformerTrunk):
                 for m in stack.modules():
                     if isinstance(m, nn.Linear):
                         nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
@@ -1058,9 +1339,12 @@ class YOGO:
                             m.bias.zero_()
                     elif isinstance(m, SwinBlock):
                         nn.init.trunc_normal_(m.rel_bias, std=0.02, generator=generator)
+                    elif isinstance(m, ViTDetBase):
+                        nn.init.trunc_normal_(m.pos_embed, std=0.02, generator=generator)
                     elif isinstance(m, nn.Conv2d):
                         _lecun_normal_(m.weight, m.weight[0].numel(), generator)
-                        m.bias.zero_()
+                        if m.bias is not None:
+                            m.bias.zero_()
                     elif isinstance(m, nn.ConvTranspose2d):
                         _lecun_normal_(m.weight, m.weight.numel() // m.weight.shape[1], generator)
                         m.bias.zero_()

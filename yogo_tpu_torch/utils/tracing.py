@@ -27,12 +27,15 @@ window's counters that `counts()` returns.
                                batch, 71 a ConvNeXt-Small one
         nms                    NMS resolves on the card (ops/nms.py): one a count
         layer_norm             inference LayerNorms on the card (ops/layer_norm.py):
-                               40 a ConvNeXt-Small forward and 29 a Swin-S one
-        layer_norm_windows     those that store into Swin's windows (the same
-                               source, given a window geometry): 24 a Swin-S
-                               forward
-        window_merge           Swin's window merge and residual add
-                               (ops/window_merge.py): 24 a Swin-S forward
+                               40 a ConvNeXt-Small forward, 29 a Swin-S one and
+                               18 a ViTDet-B one (12 MLP norms, the 4 global
+                               blocks' attention norms, 2 in the neck)
+        layer_norm_windows     those that store into windows (the same source,
+                               given a window geometry): 24 a Swin-S forward,
+                               8 a ViTDet-B one
+        window_merge           the window merge and residual add
+                               (ops/window_merge.py): 24 a Swin-S forward, 8 a
+                               ViTDet-B one
     <name>_kernel_builds    nvcc runs of csrc/<name>.cu or of a variant of it
                             (kernels.nvcc)
     nms_calls            NMS resolves (ops/nms.py), on either path
@@ -42,6 +45,14 @@ window's counters that `counts()` returns.
                          SwinBlock), summed over a forward's blocks and images
     swin_pad_tokens      tokens a Swin block pads its map with to whole windows,
                          computes and then crops, over its blocks and images
+    vit_global_tokens    tokens (queries, and keys alike) a ViTDet global block
+                         attends over (models/yogo.py ViTBlock), summed over a
+                         forward's global blocks and images: 4 x 3,185 an image
+                         at 772x1032
+    vit_windows          windows a ViTDet window block attends in, summed over
+                         its blocks and images: 8 x 20 an image
+    vit_pad_tokens       tokens a ViTDet window block pads its map with to
+                         whole windows, over its blocks and images: 8 x 735
 
 The Swin trunk's spans, each with its device: "swin/attn" (the window
 attention: q, k, v in, the attended values out; one a block) and
@@ -50,6 +61,13 @@ attention LayerNorm that writes the padded, shifted windows the qkv Dense
 reads, and the merge of the projection's windows into the residual add; on
 the card one kernel each, on the CPU and under autograd the LayerNorm and
 pad, roll, partition, then reverse, unroll, crop and add).
+
+The ViTDet trunk's spans, each with its device: "vit/global_attn" (a
+global block's attention, q, k, v in and the attended values out: the
+rel-pos products, the widened q and k and the fused attention; 4 a
+forward), "vit/win_attn" (the same in a window block; 8 a forward) and
+"vit/layout" (a window block's attention LayerNorm storing into the
+windows and the merge-add of its projection, as Swin's; 16 a forward).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ torch's layouts and names under the same module paths:
                a depthwise (7,7,1,C) gives (C,1,7,7)
   Dense        .../{pwconv1,pwconv2,qkv,proj,fc1,fc2,reduction}/kernel (I,O)
                <-> .weight (O,I)
-  transpose    format_up/kernel (kh,kw,I,O) <-> format_up.weight (I,O,kh,kw),
+  transpose    {format_up,neck_up}/kernel (kh,kw,I,O) <-> .weight (I,O,kh,kw),
                spatially flipped: flax's ConvTranspose correlates with the
                kernel as it is, torch's ConvTranspose2d with it flipped
   norms        bn{i} / *norm: scale, bias <-> weight, bias
@@ -17,6 +17,8 @@ torch's layouts and names under the same module paths:
   Swin         stage{s}_block{b}/rel_bias <-> stage{s}_block{b}.rel_bias (a bare
                parameter; the swin family is the port's own, so this layout
                is only its checkpoints')
+  ViTDet       pos_embed (top level) and block{i}/rel_pos_{h,w}, bare
+               parameters likewise (the vitdet family is the port's own too)
   biases       bias <-> bias
   BN stats     batch_stats/bn{i}/{mean,var} <-> bn{i}.running_{mean,var}
   (bn{i}.num_batches_tracked, which flax does not track, is 0 one way and
@@ -46,8 +48,8 @@ from yogo_tpu_torch.parallel.mesh import full_tensor, shard_like
 
 _STATS = {"running_mean": "mean", "running_var": "var"}
 _LINEAR = ("pwconv1", "pwconv2", "qkv", "proj", "fc1", "fc2", "reduction")
-_BARE = ("gamma", "rel_bias")  # parameters of a module, not of a submodule
-_TRANSPOSE = ("format_up",)
+_BARE = ("gamma", "rel_bias", "pos_embed", "rel_pos_h", "rel_pos_w")  # parameters of a module, not of a submodule
+_TRANSPOSE = ("format_up", "neck_up")
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -149,7 +151,7 @@ def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     empty "batch_stats", as the JAX package's Trainer writes it."""
     named, batch_stats = {}, {}
     for key, value in state_dict.items():
-        name, suffix = key.rsplit(".", 1)
+        name, _, suffix = key.rpartition(".")
         if suffix in _STATS:
             batch_stats.setdefault(name, {})[_STATS[suffix]] = np.array(
                 value.detach().cpu().numpy(), np.float32
